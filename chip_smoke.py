@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Drive seal_tpu_torch's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+
+1. build: compile every CUDA kernel from seal_tpu_torch/csrc (one nvcc per
+   source, started together).
+2. K1 (the NTT kernel) and 3. K2 (the key-switch inner product kernel) at
+   N=16384, at the shapes the main path gives them: each held bit for bit
+   against its plain PyTorch version on CPU copies of the same inputs, with
+   the kernel's median time (CUDA events), the plain version's time on the
+   host CPU, and the least time the card could take (bytes at 3.35 TB/s or
+   32-bit integer multiplies at 16.7 T/s, whichever is larger).
+4. pipeline: CKKS n=16384 with 8 data primes in both modes of the repo's
+   bench.py: α=2 (bits [44]*8 + [43]*2) multiply -> relinearize_rescale, and
+   α=1 (bits [48]*8 + [54]) multiply -> relinearize -> rescale_to_next. Keys
+   and two sparse plaintexts (a few coefficients of about 2^40) are made on
+   the card from one torch.Generator; the card's result is held bit for bit
+   against the same pipeline on CPU copies (the plain path), and its
+   decryption against the exact negacyclic product m1·m2/q_last. Launch
+   counts are zeroed just before each mode's run and read just after.
+5. kernels: one JSON line with every ported kernel, its check and times.
+
+It needs one CUDA device, and ends with the line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+N = 16384
+LOG_N = 14
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT32_MUL_PER_S = 16.7e12       # 132 SMs x 64 INT32 lanes x 1.98 GHz
+SEED = 20261016
+NOISE_BOUND = 1 << 16           # |decrypted - m1·m2/q_last| allowed, in units
+MODES = {
+    "alpha2_fused": dict(bits=[44] * 8 + [43] * 2, alpha=2, fused=True),
+    "alpha1_parity": dict(bits=[48] * 8 + [54], alpha=1, fused=False),
+}
+# Multiplies of 32-bit words per 64x64-bit product: low half 3, high half 4.
+MUL_LO, MUL_HI = 3, 4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, what):
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median milliseconds of one call of fn on the card (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps=3):
+    """Median milliseconds of one call of fn on the host."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bound(nbytes, muls):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = muls / INT32_MUL_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_residues(shape, moduli, gen, factor=1):
+    """int64 residues below factor·q of the prime of each row (row % L)."""
+    import torch
+
+    L = len(moduli)
+    q = torch.tensor(moduli, dtype=torch.int64).reshape(L, 1)
+    u = torch.randint(0, 1 << 62, tuple(shape), generator=gen, dtype=torch.int64)
+    return u % (q * factor)
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 3: the kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_ntt(gen):
+    import torch
+
+    from seal_tpu_torch import CoeffModulus
+    from seal_tpu_torch.ops import ntt
+
+    moduli = [m.value for m in CoeffModulus.create(N, MODES["alpha2_fused"]["bits"])]
+    results = {}
+    # [10, N]: the α=2 key tower; [7, 8, N]: the α=1 body of the diagonal-
+    # skip decompose (the largest forward); [8, N]: the inverse of c2
+    for shape in ((10, N), (7, 8, N), (8, N)):
+        L = shape[-2]
+        t_dev = ntt.make_ntt_tables(LOG_N, moduli[:L], "cuda")
+        t_cpu = ntt.make_ntt_tables(LOG_N, moduli[:L], "cpu")
+        rows = 1
+        for s in shape[:-1]:
+            rows *= s
+        for kind, kernel, plain, in_factor in (
+                ("ntt_forward", ntt.ntt_forward_cuda, ntt.ntt_forward_plain, 4),
+                ("ntt_inverse", ntt.ntt_inverse_cuda, ntt.ntt_inverse_plain, 2)):
+            x = random_residues(shape, moduli[:L], gen, in_factor)
+            x_dev = x.cuda()
+            for lazy in (False, True):
+                got = kernel(x_dev, t_dev, lazy).cpu()
+                want = plain(x, t_cpu, lazy)
+                require(torch.equal(got, want), f"{kind} lazy={lazy} {shape} bit-exact")
+            ms = cuda_ms(lambda: kernel(x_dev, t_dev, False))
+            plain_ms = host_ms(lambda: plain(x, t_cpu, False), reps=1)
+            # data in and out once, the prime's op and quotient tables once
+            nbytes = 2 * rows * N * 8 + 2 * L * N * 8
+            muls = rows * (N // 2) * LOG_N * (2 * MUL_LO + MUL_HI)
+            b_ms, b_by = bound(nbytes, muls)
+            line = {"phase": "K1", "kernel": kind, "shape": list(shape),
+                    "bit_exact": True, "max_abs_err": 0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            emit(line)
+            results[(kind, shape)] = line
+    return {"ntt_forward": results[("ntt_forward", (7, 8, N))],
+            "ntt_inverse": results[("ntt_inverse", (8, N))]}
+
+
+def phase_keyswitch(gen):
+    import torch
+
+    from seal_tpu_torch import CoeffModulus
+    from seal_tpu_torch.ops import keyswitch
+
+    results = {}
+    for mode, (J, I) in (("alpha1_parity", (8, 9)), ("alpha2_fused", (4, 10))):
+        moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+        t = random_residues((J, I, N), moduli, gen)
+        k = random_residues((J, 2, I, N), moduli, gen)
+        consts = keyswitch.pack_mod_consts(moduli, "cpu")
+        t_dev, k_dev, c_dev = t.cuda(), k.cuda(), consts.cuda()
+        got = keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev).cpu()
+        want = keyswitch.keyswitch_inner_plain(t, k, consts)
+        require(torch.equal(got, want), f"keyswitch_inner (J, I) = {(J, I)} bit-exact")
+        ms = cuda_ms(lambda: keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev))
+        plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_plain(t, k, consts))
+        nbytes = (J * I * N + 2 * J * I * N + 2 * I * N) * 8
+        # per (i, x): 2J full products, then two Barrett-128 reductions
+        muls = I * N * (2 * J * (MUL_LO + MUL_HI) + 2 * (4 * MUL_LO + 3 * MUL_HI))
+        b_ms, b_by = bound(nbytes, muls)
+        line = {"phase": "K2", "kernel": "keyswitch_inner", "shape": [J, I, N],
+                "bit_exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        emit(line)
+        results[mode] = line
+    return {"keyswitch_inner": results["alpha1_parity"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the pipeline
+# ---------------------------------------------------------------------------
+
+def sparse_plain(gen, count=4, bits=40):
+    """{index: value}: `count` coefficients of magnitude about 2^bits."""
+    import torch
+
+    idx = torch.randperm(N, generator=gen, device=gen.device)[:count].tolist()
+    mag = torch.randint(1 << (bits - 1), 1 << bits, (count,), generator=gen,
+                        device=gen.device).tolist()
+    sign = torch.randint(0, 2, (count,), generator=gen, device=gen.device).tolist()
+    return {i: (m if s else -m) for i, m, s in zip(idx, mag, sign)}
+
+
+def negacyclic_product(a: dict, b: dict, n: int) -> dict:
+    out: dict = {}
+    for i, x in a.items():
+        for j, y in b.items():
+            k, v = i + j, x * y
+            if k >= n:
+                k, v = k - n, -v
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def encode_sparse(ctx, coeffs: dict, scale: float):
+    """NTT-form plaintext of an integer polynomial at the first level."""
+    import torch
+
+    from seal_tpu_torch import Plaintext
+    from seal_tpu_torch.ops import ntt
+
+    cd = ctx.first_context_data()
+    rows = torch.zeros((cd.coeff_modulus_size, N), dtype=torch.int64)
+    for i, v in coeffs.items():
+        rows[:, i] = torch.tensor([v % q for q in cd.key_moduli()])
+    return Plaintext(ntt.ntt_forward(rows.to(ctx.device), cd.ntt_tables),
+                     tuple(cd.parms_id), scale)
+
+
+def run_mode(ev, fused, ct1, ct2, rk):
+    prod = ev.multiply(ct1, ct2)
+    if fused:
+        return ev.relinearize_rescale(prod, rk)
+    return ev.rescale_to_next(ev.relinearize(prod, rk))
+
+
+def phase_pipeline(mode, spec):
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import (
+        CoeffModulus, Decryptor, EncryptionParameters, Encryptor, Evaluator,
+        KeyGenerator, SchemeType, SEALContext, cuda, interop)
+    from seal_tpu_torch.dtypes import u64_numpy
+    from seal_tpu_torch.ops import ntt
+
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, spec["bits"]))
+    parms.set_special_modulus_size(spec["alpha"])
+    ctx = SEALContext(parms)
+    ctx_cpu = SEALContext(parms, device="cpu")
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED)
+
+    t0 = time.perf_counter()
+    kg = KeyGenerator(ctx, gen)
+    sk = kg.secret_key()
+    rk = kg.create_relin_keys()
+    enc = Encryptor(ctx, sk, gen)
+    scale = 2.0 ** 40
+    m1, m2 = sparse_plain(gen), sparse_plain(gen)
+    ct1 = enc.encrypt_symmetric(encode_sparse(ctx, m1, scale))
+    ct2 = enc.encrypt_symmetric(encode_sparse(ctx, m2, scale))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    ev = Evaluator(ctx)
+    cuda.reset_launches()
+    out = run_mode(ev, spec["fused"], ct1, ct2, rk)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+
+    # the same pipeline on CPU copies of the same inputs: the plain path
+    def carry(ct):
+        return interop.ciphertext_from_numpy(
+            ctx_cpu, ct.to_numpy(), ct.parms_id, ct.scale, ct.is_ntt_form)
+
+    rk_cpu = interop.relin_keys_from_numpy(ctx_cpu, [u64_numpy(k) for k in rk.keys])
+    t0 = time.perf_counter()
+    out_cpu = run_mode(Evaluator(ctx_cpu), spec["fused"], carry(ct1), carry(ct2), rk_cpu)
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(out.to_numpy(), out_cpu.to_numpy()),
+            f"{mode}: card output bit-identical to the plain path")
+    require(tuple(out.parms_id) == tuple(out_cpu.parms_id) and out.scale == out_cpu.scale,
+            f"{mode}: metadata equal")
+
+    # decrypt: row 0 of the coefficient form, centered mod q0
+    cd = ctx.get_context_data(out.parms_id)
+    phase = ntt.ntt_inverse(Decryptor(ctx, sk).decrypt(out).data, cd.ntt_tables)
+    q0 = cd.key_moduli()[0]
+    q_last = ctx.get_context_data(ct1.parms_id).key_moduli()[-1]
+    got = phase[0].cpu().tolist()
+    exact = negacyclic_product(m1, m2, N)
+    err = 0.0
+    for i in range(N):
+        v = got[i] - q0 if got[i] > q0 // 2 else got[i]
+        err = max(err, abs(v - exact.get(i, 0) / q_last))
+    require(err <= NOISE_BOUND, f"{mode}: decryption error {err} within {NOISE_BOUND}")
+    require(out.size == 2 and out.coeff_modulus_size == 7, f"{mode}: output shape")
+
+    ms = host_ms(lambda: (run_mode(ev, spec["fused"], ct1, ct2, rk),
+                          torch.cuda.synchronize()), reps=10)
+    line = {"phase": "pipeline", "mode": mode, "n": N, "data_primes": 8,
+            "special_primes": spec["alpha"], "bit_exact_vs_plain": True,
+            "max_decrypt_err": err, "noise_bound": NOISE_BOUND,
+            "signal_log2": math.log2(max(abs(v) for v in exact.values()) / q_last),
+            "launches": launches, "ms_per_mult_relin_rescale": ms,
+            "setup_s": setup_s, "plain_cpu_s": cpu_s}
+    emit(line)
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from seal_tpu_torch import cuda
+
+    emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES)})
+    gen = torch.Generator().manual_seed(SEED)
+    kernels = phase_ntt(gen)
+    kernels.update(phase_keyswitch(gen))
+
+    total = {name: 0 for name in cuda.launches}
+    for mode, spec in MODES.items():
+        for name, count in phase_pipeline(mode, spec).items():
+            total[name] += count
+    for name, count in total.items():
+        require(count > 0, f"{name} launched on the main path")
+
+    replaces = {
+        "ntt_forward": "seal_tpu/ops/ntt_pallas.py:542",
+        "ntt_inverse": "seal_tpu/ops/ntt_pallas.py:542",
+        "keyswitch_inner": "seal_tpu/ops/keyswitch_pallas.py:56",
+    }
+    source = {"ntt_forward": "seal_tpu_torch/csrc/ntt.cu",
+              "ntt_inverse": "seal_tpu_torch/csrc/ntt.cu",
+              "keyswitch_inner": "seal_tpu_torch/csrc/keyswitch.cu"}
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": source[name],
+         "replaces": replaces[name], "launches": total[name],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+         "shape": k["shape"]}
+        for name, k in kernels.items()]})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

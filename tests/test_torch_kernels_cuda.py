@@ -1,0 +1,111 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU and nvcc: it carries the `cuda` marker
+and skips without a card. The file imports neither JAX nor seal_tpu, so it
+also runs on a machine without them, without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import seal_tpu_torch as st
+from seal_tpu_torch import cuda
+from seal_tpu_torch.modulus import CoeffModulus
+from seal_tpu_torch.ops import keyswitch, ntt
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+
+
+def _residues(shape, moduli, factor, seed):
+    rng = np.random.default_rng(seed)
+    q = np.array(moduli, dtype=np.uint64)[:, None] * np.uint64(factor)
+    x = rng.integers(0, 1 << 62, shape, dtype=np.int64).astype(np.uint64) % q
+    x[..., :, 0] = q[:, 0] - np.uint64(1)
+    return torch.from_numpy(x.view(np.int64))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 64), (2, 3, 1024), (4, 2, 16384)])
+@pytest.mark.parametrize("direction,factor", [("forward", 4), ("inverse", 2)])
+def test_ntt_kernel_matches_plain(shape, direction, factor):
+    n = shape[-1]
+    log_n = n.bit_length() - 1
+    moduli = [m.value for m in CoeffModulus.create(max(n, 64), [30, 50, 60][:shape[-2]])]
+    t_cpu = ntt.make_ntt_tables(log_n, moduli, "cpu")
+    t_dev = ntt.make_ntt_tables(log_n, moduli, "cuda")
+    x = _residues(shape, moduli, factor, seed=n)
+    for lazy in (False, True):
+        plain = getattr(ntt, f"ntt_{direction}_plain")(x, t_cpu, lazy)
+        kernel = getattr(ntt, f"ntt_{direction}_cuda")(x.cuda(), t_dev, lazy)
+        assert torch.equal(kernel.cpu(), plain)
+
+
+def test_ntt_dispatch_launches_kernel_and_refuses_large_rows():
+    moduli = [m.value for m in CoeffModulus.create(32768, [50, 50])]
+    t = ntt.make_ntt_tables(10, [m.value for m in CoeffModulus.create(1024, [50])], "cuda")
+    before = cuda.launches["ntt_forward"]
+    ntt.ntt_forward(torch.zeros((1, 1024), dtype=torch.int64, device="cuda"), t)
+    assert cuda.launches["ntt_forward"] == before + 1
+    big = ntt.make_ntt_tables(15, moduli, "cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ntt.ntt_forward(torch.zeros((2, 32768), dtype=torch.int64, device="cuda"), big)
+
+
+@pytest.mark.parametrize("J,I,n", [(1, 1, 64), (8, 9, 16384), (4, 10, 16384), (64, 2, 256)])
+def test_keyswitch_kernel_matches_plain(J, I, n):
+    """Inputs up to 2^61 and J up to the 64 terms the 128-bit sum holds."""
+    rng = np.random.default_rng(J * 100 + I)
+    moduli = [m.value for m in CoeffModulus.create(max(n, 1024), [60] * I)]
+    t = rng.integers(0, 1 << 61, (J, I, n), dtype=np.int64)
+    k = rng.integers(0, 1 << 61, (J, 2, I, n), dtype=np.int64)
+    t[..., 0] = k[..., 0] = (1 << 61) - 1
+    t, k = torch.from_numpy(t), torch.from_numpy(k)
+    consts = keyswitch.pack_mod_consts(moduli, "cpu")
+    plain = keyswitch.keyswitch_inner_plain(t, k, consts)
+    kernel = keyswitch.keyswitch_inner(t.cuda(), k.cuda(), consts.cuda())
+    assert torch.equal(kernel.cpu(), plain)
+
+
+@pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
+def test_pipeline_on_card_matches_cpu(alpha, bits):
+    """multiply -> relinearize -> rescale and the fused tail at n = 1024:
+    the card's bits equal the plain path's on the same keys and inputs."""
+    from seal_tpu_torch import interop
+
+    n = 1024
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
+    parms.set_special_modulus_size(alpha)
+    ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE)
+    cpu = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(alpha)
+    kg = st.KeyGenerator(ctx, gen)
+    rk = kg.create_relin_keys()
+    enc = st.Encryptor(ctx, kg.secret_key(), gen)
+    cd = ctx.first_context_data()
+    plain = st.Plaintext(ntt.ntt_forward(
+        torch.randint(0, 1 << 20, (cd.coeff_modulus_size, n), device="cuda", generator=gen),
+        cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
+    cts = [enc.encrypt_symmetric(plain) for _ in range(2)]
+    carried = [interop.ciphertext_from_numpy(cpu, c.to_numpy(), c.parms_id, c.scale)
+               for c in cts]
+    rk_cpu = interop.relin_keys_from_numpy(cpu, [k.cpu().numpy().view(np.uint64)
+                                                 for k in rk.keys])
+    for ev, (a, b), keys in ((st.Evaluator(ctx), cts, rk), (st.Evaluator(cpu), carried, rk_cpu)):
+        mul = ev.multiply(a, b)
+        out = [ev.rescale_to_next(ev.relinearize(mul, keys)), ev.relinearize_rescale(mul, keys)]
+        if ev.context is ctx:
+            got = [o.to_numpy() for o in out]
+        else:
+            want = [o.to_numpy() for o in out]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
