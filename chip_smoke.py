@@ -7,21 +7,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. build: compile every CUDA kernel from seal_tpu_torch/csrc (one nvcc per
    source, started together).
-2. K1 (the NTT kernel) and 3. K2 (the key-switch inner product kernel) at
-   N=16384, at the shapes the main path gives them: each held bit for bit
-   against its plain PyTorch version on CPU copies of the same inputs, with
-   the kernel's median time (CUDA events), the plain version's time on the
-   host CPU, and the least time the card could take (bytes at 3.35 TB/s or
-   32-bit integer multiplies at 16.7 T/s, whichever is larger).
-4. pipeline: CKKS n=16384 with 8 data primes in both modes of the repo's
+2. K1 (the NTT kernel), 3. K2 (the key-switch inner product, 128-bit route)
+   and 4. K3 (the key-switch inner product, Shoup-quotient route) at
+   N=16384, at the shapes the main paths give them: each held bit for bit
+   against its plain PyTorch version on CPU copies of the same inputs (K3
+   also against K2), with the kernel's median time (CUDA events), the plain
+   version's time on the host CPU, and the least time the card could take
+   (bytes at 3.35 TB/s or 32-bit integer multiplies at 16.7 T/s, whichever
+   is larger).
+5. pipeline: CKKS n=16384 with 8 data primes in both modes of the repo's
    bench.py: α=2 (bits [44]*8 + [43]*2) multiply -> relinearize_rescale, and
    α=1 (bits [48]*8 + [54]) multiply -> relinearize -> rescale_to_next. Keys
    and two sparse plaintexts (a few coefficients of about 2^40) are made on
    the card from one torch.Generator; the card's result is held bit for bit
    against the same pipeline on CPU copies (the plain path), and its
-   decryption against the exact negacyclic product m1·m2/q_last. Launch
-   counts are zeroed just before each mode's run and read just after.
-5. kernels: one JSON line with every ported kernel, its check and times.
+   decryption against the exact negacyclic product m1·m2/q_last. It runs
+   again with config.keyswitch_shoup on, bit for bit as with it off.
+6. rotations, in both modes: Galois keys for steps 1-8 and the conjugation
+   made on the card; on a fresh sparse ciphertext rotate_vector by 1 and by
+   9 (no key of its own: NAF 1 + 8), complex_conjugate and
+   rotate_batch_hoisted(1..8), with the Shoup flag off and on (bit for bit
+   the same), the card against the plain path on CPU copies, and every
+   decryption against the exact automorphism of the plaintext.
+7. kernels: one JSON line with every ported kernel, its check and times.
+
+Launch counts are zeroed just before each run of a path and read just after.
 
 It needs one CUDA device, and ends with the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -148,6 +158,12 @@ def phase_ntt(gen):
             "ntt_inverse": results[("ntt_inverse", (8, N))]}
 
 
+def key_shapes():
+    """(mode, J, I): the key-switch contraction of each mode: α=1 has 8
+    digits over 8 + 1 rows, α=2 has 4 digits over 8 + 2 rows."""
+    return (("alpha1_parity", 8, 9), ("alpha2_fused", 4, 10))
+
+
 def phase_keyswitch(gen):
     import torch
 
@@ -155,7 +171,7 @@ def phase_keyswitch(gen):
     from seal_tpu_torch.ops import keyswitch
 
     results = {}
-    for mode, (J, I) in (("alpha1_parity", (8, 9)), ("alpha2_fused", (4, 10))):
+    for mode, J, I in key_shapes():
         moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
         t = random_residues((J, I, N), moduli, gen)
         k = random_residues((J, 2, I, N), moduli, gen)
@@ -176,6 +192,45 @@ def phase_keyswitch(gen):
         emit(line)
         results[mode] = line
     return {"keyswitch_inner": results["alpha1_parity"]}
+
+
+def phase_keyswitch_shoup(gen):
+    import torch
+
+    from seal_tpu_torch import CoeffModulus
+    from seal_tpu_torch.ops import keyswitch
+
+    results = {}
+    for mode, J, I in key_shapes():
+        moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+        q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
+        t = random_residues((J, I, N), moduli, gen)
+        k = random_residues((J, 2, I, N), moduli, gen)
+        t[..., 0] = k[..., 0] = q[:, 0] - 1          # quotients with the top bit
+        kq = keyswitch.key_quotients(k, moduli)
+        consts, max_q = keyswitch.pack_mod_consts(moduli, "cpu"), max(moduli)
+        t_dev, k_dev, kq_dev, c_dev = t.cuda(), k.cuda(), kq.cuda(), consts.cuda()
+        got = keyswitch.keyswitch_inner_shoup_cuda(t_dev, k_dev, kq_dev, c_dev, max_q)
+        want = keyswitch.keyswitch_inner_shoup_plain(t, k, kq, consts, max_q)
+        require(torch.equal(got.cpu(), want), f"keyswitch_inner_shoup {(J, I)} bit-exact")
+        require(torch.equal(got, keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev)),
+                f"keyswitch_inner_shoup {(J, I)} equals keyswitch_inner")
+        require(torch.equal(keyswitch.key_quotients(k_dev, moduli).cpu(), kq),
+                f"key quotients {(J, I)} on the card equal the CPU's")
+        ms = cuda_ms(lambda: keyswitch.keyswitch_inner_shoup_cuda(
+            t_dev, k_dev, kq_dev, c_dev, max_q))
+        plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_shoup_plain(
+            t, k, kq, consts, max_q))
+        nbytes = (J * I * N + 4 * J * I * N + 2 * I * N) * 8
+        # per (i, x) and component: J lazy Shoup terms, three 64-bit products each
+        muls = I * N * 2 * J * (2 * MUL_LO + MUL_HI)
+        b_ms, b_by = bound(nbytes, muls)
+        line = {"phase": "K3", "kernel": "keyswitch_inner_shoup", "shape": [J, I, N],
+                "bit_exact": True, "equals_k2": True, "max_abs_err": 0, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        emit(line)
+        results[mode] = line
+    return {"keyswitch_inner_shoup": results["alpha1_parity"]}
 
 
 # ---------------------------------------------------------------------------
@@ -226,22 +281,56 @@ def run_mode(ev, fused, ct1, ct2, rk):
     return ev.rescale_to_next(ev.relinearize(prod, rk))
 
 
-def phase_pipeline(mode, spec):
-    import numpy as np
-    import torch
-
-    from seal_tpu_torch import (
-        CoeffModulus, Decryptor, EncryptionParameters, Encryptor, Evaluator,
-        KeyGenerator, SchemeType, SEALContext, cuda, interop)
-    from seal_tpu_torch.dtypes import u64_numpy
-    from seal_tpu_torch.ops import ntt
+def contexts(spec):
+    """(the card's context, the CPU's) for one mode."""
+    from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SEALContext
 
     parms = EncryptionParameters(SchemeType.CKKS)
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, spec["bits"]))
     parms.set_special_modulus_size(spec["alpha"])
-    ctx = SEALContext(parms)
-    ctx_cpu = SEALContext(parms, device="cpu")
+    return SEALContext(parms), SEALContext(parms, device="cpu")
+
+
+def counted(fn):
+    """fn()'s result, synchronised, and the kernel launches it made: the
+    counts are zeroed just before and read just after."""
+    import torch
+
+    from seal_tpu_torch import cuda
+
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(cuda.launches)
+
+
+def add_counts(total, counts):
+    for name, count in counts.items():
+        total[name] = total.get(name, 0) + count
+    return total
+
+
+def centered_row0(ctx, ct, sk):
+    """Row 0 of the decrypted phase in the coefficient domain, centered."""
+    from seal_tpu_torch import Decryptor
+    from seal_tpu_torch.ops import ntt
+
+    cd = ctx.get_context_data(ct.parms_id)
+    phase = ntt.ntt_inverse(Decryptor(ctx, sk).decrypt(ct).data, cd.ntt_tables)
+    q0 = cd.key_moduli()[0]
+    return [v - q0 if v > q0 // 2 else v for v in phase[0].cpu().tolist()]
+
+
+def phase_pipeline(mode, spec):
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import Encryptor, Evaluator, KeyGenerator, interop
+    from seal_tpu_torch.config import config
+    from seal_tpu_torch.dtypes import u64_numpy
+
+    ctx, ctx_cpu = contexts(spec)
     gen = torch.Generator(device=ctx.device).manual_seed(SEED)
 
     t0 = time.perf_counter()
@@ -257,10 +346,16 @@ def phase_pipeline(mode, spec):
     setup_s = time.perf_counter() - t0
 
     ev = Evaluator(ctx)
-    cuda.reset_launches()
-    out = run_mode(ev, spec["fused"], ct1, ct2, rk)
-    torch.cuda.synchronize()
-    launches = dict(cuda.launches)
+    out, launches = counted(lambda: run_mode(ev, spec["fused"], ct1, ct2, rk))
+    config.keyswitch_shoup = True
+    try:
+        out_shoup, launches_shoup = counted(lambda: run_mode(ev, spec["fused"], ct1, ct2, rk))
+    finally:
+        config.keyswitch_shoup = False
+    require(np.array_equal(out_shoup.to_numpy(), out.to_numpy()),
+            f"{mode}: Shoup route bit-identical to the 128-bit route")
+    require(launches_shoup["keyswitch_inner_shoup"] > 0 and launches["keyswitch_inner"] > 0,
+            f"{mode}: each key-switch route launched its kernel")
 
     # the same pipeline on CPU copies of the same inputs: the plain path
     def carry(ct):
@@ -277,16 +372,10 @@ def phase_pipeline(mode, spec):
             f"{mode}: metadata equal")
 
     # decrypt: row 0 of the coefficient form, centered mod q0
-    cd = ctx.get_context_data(out.parms_id)
-    phase = ntt.ntt_inverse(Decryptor(ctx, sk).decrypt(out).data, cd.ntt_tables)
-    q0 = cd.key_moduli()[0]
     q_last = ctx.get_context_data(ct1.parms_id).key_moduli()[-1]
-    got = phase[0].cpu().tolist()
+    got = centered_row0(ctx, out, sk)
     exact = negacyclic_product(m1, m2, N)
-    err = 0.0
-    for i in range(N):
-        v = got[i] - q0 if got[i] > q0 // 2 else got[i]
-        err = max(err, abs(v - exact.get(i, 0) / q_last))
+    err = max(abs(got[i] - exact.get(i, 0) / q_last) for i in range(N))
     require(err <= NOISE_BOUND, f"{mode}: decryption error {err} within {NOISE_BOUND}")
     require(out.size == 2 and out.coeff_modulus_size == 7, f"{mode}: output shape")
 
@@ -296,10 +385,118 @@ def phase_pipeline(mode, spec):
             "special_primes": spec["alpha"], "bit_exact_vs_plain": True,
             "max_decrypt_err": err, "noise_bound": NOISE_BOUND,
             "signal_log2": math.log2(max(abs(v) for v in exact.values()) / q_last),
-            "launches": launches, "ms_per_mult_relin_rescale": ms,
+            "launches": launches, "launches_shoup": launches_shoup,
+            "shoup_bit_identical": True, "ms_per_mult_relin_rescale": ms,
             "setup_s": setup_s, "plain_cpu_s": cpu_s}
     emit(line)
-    return launches
+    return add_counts(launches, launches_shoup)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: rotations
+# ---------------------------------------------------------------------------
+
+ROT_KEY_STEPS = list(range(1, 9))
+ROT_NAF_STEP = 9                    # no key of its own: NAF 1 + 8
+
+
+def automorphism(coeffs: dict, elt: int, n: int) -> dict:
+    """x^i -> x^(i·elt mod 2n), with x^n = -1."""
+    out = {}
+    for i, v in coeffs.items():
+        k = i * elt % (2 * n)
+        out[k % n] = -v if k >= n else v
+    return out
+
+
+def rotations(ev, ct, gk):
+    """{name: list of ciphertexts}: the rotations the phase holds."""
+    return {"rotate_1": [ev.rotate_vector(ct, 1, gk)],
+            "rotate_9_naf": [ev.rotate_vector(ct, ROT_NAF_STEP, gk)],
+            "conjugate": [ev.complex_conjugate(ct, gk)],
+            "hoisted_1_to_8": ev.rotate_batch_hoisted(ct, ROT_KEY_STEPS, gk)}
+
+
+def phase_rotations(mode, spec):
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import Encryptor, Evaluator, KeyGenerator, interop
+    from seal_tpu_torch.config import config
+    from seal_tpu_torch.dtypes import u64_numpy
+
+    ctx, ctx_cpu = contexts(spec)
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    kg = KeyGenerator(ctx, gen)
+    sk = kg.secret_key()
+    gk = kg.create_galois_keys(steps=ROT_KEY_STEPS + [0])
+    m = sparse_plain(gen)
+    ct = Encryptor(ctx, sk, gen).encrypt_symmetric(encode_sparse(ctx, m, 2.0 ** 40))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    ev = Evaluator(ctx)
+    outs, launches = counted(lambda: rotations(ev, ct, gk))
+    config.keyswitch_shoup = True
+    try:
+        outs_shoup, launches_shoup = counted(lambda: rotations(ev, ct, gk))
+        ms_shoup = host_ms(lambda: (ev.rotate_vector(ct, 1, gk), torch.cuda.synchronize()), 10)
+        hoisted_ms_shoup = host_ms(lambda: (ev.rotate_batch_hoisted(ct, ROT_KEY_STEPS, gk),
+                                            torch.cuda.synchronize()), 5)
+    finally:
+        config.keyswitch_shoup = False
+    ms = host_ms(lambda: (ev.rotate_vector(ct, 1, gk), torch.cuda.synchronize()), 10)
+    hoisted_ms = host_ms(lambda: (ev.rotate_batch_hoisted(ct, ROT_KEY_STEPS, gk),
+                                  torch.cuda.synchronize()), 5)
+    require(launches_shoup["keyswitch_inner_shoup"] > 0 and launches["keyswitch_inner"] > 0,
+            f"{mode}: each key-switch route launched its kernel")
+    for name, cts in outs.items():
+        for a, b in zip(cts, outs_shoup[name]):
+            require(np.array_equal(a.to_numpy(), b.to_numpy()),
+                    f"{mode} {name}: Shoup route bit-identical to the 128-bit route")
+
+    # the plain path on CPU copies, for all but the NAF rotation
+    ct_cpu = interop.ciphertext_from_numpy(ctx_cpu, ct.to_numpy(), ct.parms_id, ct.scale)
+    gk_cpu = interop.galois_keys_from_numpy(
+        ctx_cpu, [None if k is None else u64_numpy(k) for k in gk.keys])
+    ev_cpu = Evaluator(ctx_cpu)
+    t0 = time.perf_counter()
+    cpu = {"rotate_1": [ev_cpu.rotate_vector(ct_cpu, 1, gk_cpu)],
+           "conjugate": [ev_cpu.complex_conjugate(ct_cpu, gk_cpu)],
+           "hoisted_1_to_8": ev_cpu.rotate_batch_hoisted(ct_cpu, ROT_KEY_STEPS, gk_cpu)}
+    cpu_s = time.perf_counter() - t0
+    for name, cts in cpu.items():
+        for a, b in zip(outs[name], cts):
+            require(np.array_equal(a.to_numpy(), b.to_numpy()),
+                    f"{mode} {name}: card output bit-identical to the plain path")
+
+    gt = ctx.first_context_data().galois_tool
+    elts = {"rotate_1": [gt.get_elt_from_step(1)],
+            "rotate_9_naf": [gt.get_elt_from_step(ROT_NAF_STEP)],
+            "conjugate": [2 * N - 1],
+            "hoisted_1_to_8": gt.get_elts_from_steps(ROT_KEY_STEPS)}
+    err = 0
+    for name, cts in outs.items():
+        for elt, out in zip(elts[name], cts):
+            require(out.size == 2 and tuple(out.parms_id) == tuple(ct.parms_id),
+                    f"{mode} {name}: output shape and level")
+            exact = automorphism(m, elt, N)
+            got = centered_row0(ctx, out, sk)
+            err = max(err, max(abs(got[i] - exact.get(i, 0)) for i in range(N)))
+    require(err <= NOISE_BOUND, f"{mode}: rotation decryption error {err} within {NOISE_BOUND}")
+
+    line = {"phase": "rotations", "mode": mode, "n": N, "data_primes": 8,
+            "special_primes": spec["alpha"], "key_steps": ROT_KEY_STEPS + [0],
+            "bit_exact_vs_plain": True, "shoup_bit_identical": True,
+            "max_decrypt_err": err, "noise_bound": NOISE_BOUND,
+            "launches": launches, "launches_shoup": launches_shoup,
+            "ms_per_rotate_vector": ms, "ms_per_rotate_vector_shoup": ms_shoup,
+            "ms_per_hoisted_rotation": hoisted_ms / len(ROT_KEY_STEPS),
+            "ms_per_hoisted_rotation_shoup": hoisted_ms_shoup / len(ROT_KEY_STEPS),
+            "setup_s": setup_s, "plain_cpu_s": cpu_s}
+    emit(line)
+    return add_counts(launches, launches_shoup)
 
 
 def main() -> int:
@@ -314,22 +511,28 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     kernels = phase_ntt(gen)
     kernels.update(phase_keyswitch(gen))
+    kernels.update(phase_keyswitch_shoup(gen))
 
     total = {name: 0 for name in cuda.launches}
     for mode, spec in MODES.items():
-        for name, count in phase_pipeline(mode, spec).items():
-            total[name] += count
+        add_counts(total, phase_pipeline(mode, spec))
+        add_counts(total, phase_rotations(mode, spec))
     for name, count in total.items():
-        require(count > 0, f"{name} launched on the main path")
+        require(count > 0, f"{name} launched on the paths run")
 
+    # K4 (_ntt_kernel_compact) computes K1's transform from the same roots
+    # that csrc/ntt.cu reads, in the same order: ntt.cu is its counterpart
+    ntt_tpu = "seal_tpu/ops/ntt_pallas.py:542, seal_tpu/ops/ntt_pallas.py:428"
     replaces = {
-        "ntt_forward": "seal_tpu/ops/ntt_pallas.py:542",
-        "ntt_inverse": "seal_tpu/ops/ntt_pallas.py:542",
+        "ntt_forward": ntt_tpu,
+        "ntt_inverse": ntt_tpu,
         "keyswitch_inner": "seal_tpu/ops/keyswitch_pallas.py:56",
+        "keyswitch_inner_shoup": "seal_tpu/ops/keyswitch_pallas.py:81",
     }
     source = {"ntt_forward": "seal_tpu_torch/csrc/ntt.cu",
               "ntt_inverse": "seal_tpu_torch/csrc/ntt.cu",
-              "keyswitch_inner": "seal_tpu_torch/csrc/keyswitch.cu"}
+              "keyswitch_inner": "seal_tpu_torch/csrc/keyswitch.cu",
+              "keyswitch_inner_shoup": "seal_tpu_torch/csrc/keyswitch.cu"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": total[name],

@@ -115,6 +115,12 @@ class ContextData:
         return self.cached("rescale", lambda: rns.make_rescale_consts(
             self.key_moduli(), self.device))
 
+    @property
+    def galois_tool(self):
+        from seal_tpu_torch.ops.galois import GaloisTool
+
+        return self.cached("galois", lambda: GaloisTool(self.log_n, self.device))
+
 
 class SEALContext:
     """Validates CKKS parameters and owns the modulus-switching chain

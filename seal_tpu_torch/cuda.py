@@ -26,7 +26,8 @@ SOURCES = ("ntt", "keyswitch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-launches = {"ntt_forward": 0, "ntt_inverse": 0, "keyswitch_inner": 0}
+launches = {"ntt_forward": 0, "ntt_inverse": 0, "keyswitch_inner": 0,
+            "keyswitch_inner_shoup": 0}
 
 _libs: dict = {}
 

@@ -123,3 +123,21 @@ class RelinKeys(KSwitchKeys):
 
     def key(self, key_power: int) -> torch.Tensor:
         return self.keys[self.get_index(key_power)]
+
+
+class GaloisKeys(KSwitchKeys):
+    """Key-switching keys indexed by Galois element: keys[(elt - 1) / 2],
+    None where there is no key (SEAL galoiskeys.h)."""
+
+    @staticmethod
+    def get_index(galois_elt: int) -> int:
+        if galois_elt < 3 or galois_elt % 2 == 0:
+            raise ValueError("galois_elt is not valid")
+        return (galois_elt - 1) >> 1
+
+    def has_key(self, galois_elt: int) -> bool:
+        i = self.get_index(galois_elt)
+        return i < len(self.keys) and self.keys[i] is not None
+
+    def key(self, galois_elt: int) -> torch.Tensor:
+        return self.keys[self.get_index(galois_elt)]

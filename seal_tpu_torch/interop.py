@@ -2,7 +2,8 @@
 their metadata.
 
 A seal_tpu object exports to exactly these arrays (Ciphertext.to_numpy(),
-dtypes.to_host of RelinKeys.keys[i] and of a SecretKey's data), as do
+dtypes.to_host of RelinKeys.keys[i], of GaloisKeys.keys[i] and of a
+SecretKey's data), as do
 SEAL's own vectors; this module reads them without
 importing seal_tpu. The port's samplers are not SEAL's byte stream, so
 bit-exact comparisons start from state carried across this way.
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from seal_tpu_torch.context import SEALContext
-from seal_tpu_torch.dtypes import Ciphertext, RelinKeys, SecretKey
+from seal_tpu_torch.dtypes import Ciphertext, GaloisKeys, RelinKeys, SecretKey
 
 
 def u64_to_tensor(arr, context: SEALContext) -> torch.Tensor:
@@ -44,3 +45,10 @@ def relin_keys_from_numpy(context: SEALContext, keys) -> RelinKeys:
     """keys: one uint64 [d, 2, L_key, N] array per key power 2, 3, ..."""
     return RelinKeys([u64_to_tensor(k, context) for k in keys],
                      tuple(context.key_parms_id))
+
+
+def galois_keys_from_numpy(context: SEALContext, keys) -> GaloisKeys:
+    """keys: per index (elt - 1) / 2, one uint64 [d, 2, L_key, N] array or
+    None where there is no key."""
+    return GaloisKeys([None if k is None else u64_to_tensor(k, context) for k in keys],
+                      tuple(context.key_parms_id))

@@ -1,8 +1,9 @@
-"""Key generation: the secret key and relinearization keys.
+"""Key generation: the secret key, relinearization keys and Galois keys.
 
-The port of seal_tpu/keygenerator.py's secret_key and create_relin_keys
-(SEAL keygenerator.cpp generate_sk :56, create_relin_keys :272,
-generate_one_kswitch_key :732). Randomness comes from the torch.Generator
+The port of seal_tpu/keygenerator.py's secret_key, create_relin_keys and
+create_galois_keys (SEAL keygenerator.cpp generate_sk :56,
+create_relin_keys :272, create_galois_keys :520, generate_one_kswitch_key
+:732). Randomness comes from the torch.Generator
 the caller passes, on the context's device.
 """
 
@@ -12,7 +13,7 @@ import torch
 
 from seal_tpu_torch import rlwe
 from seal_tpu_torch.context import SEALContext
-from seal_tpu_torch.dtypes import RelinKeys, SecretKey
+from seal_tpu_torch.dtypes import GaloisKeys, RelinKeys, SecretKey
 from seal_tpu_torch.ops import modarith, modring
 from seal_tpu_torch.ops import ntt as ntt_mod
 from seal_tpu_torch.ops.hybrid_keyswitch import digit_ranges
@@ -69,3 +70,26 @@ class KeyGenerator:
         s2 = modring.dyadic_product(s, s, key_cd.mod_consts)
         return RelinKeys([self._generate_one_kswitch_key(s2)],
                          tuple(self.context.key_parms_id))
+
+    def create_galois_keys(self, galois_elts=None, steps=None) -> GaloisKeys:
+        """Keys for the automorphisms x -> x^elt, from Galois elements or
+        from rotation steps (SEAL create_galois_keys(steps)); all of
+        get_elts_all() when neither is given. The key list is sized to n,
+        every index (elt - 1) / 2 of an odd elt < 2n."""
+        key_cd = self.context.key_context_data()
+        gt = key_cd.galois_tool
+        if steps is not None:
+            if galois_elts is not None:
+                raise ValueError("pass either galois_elts or steps, not both")
+            galois_elts = gt.get_elts_from_steps(steps)
+        if galois_elts is None:
+            galois_elts = gt.get_elts_all()
+        n = key_cd.parms.poly_modulus_degree
+        keys = [None] * n
+        for elt in galois_elts:
+            if elt % 2 == 0 or elt < 1:
+                raise ValueError("Galois element is not valid")
+            # the secret key under the automorphism, in the NTT domain
+            rotated = gt.apply_galois_ntt(self.secret_key_.data, elt)
+            keys[GaloisKeys.get_index(elt)] = self._generate_one_kswitch_key(rotated)
+        return GaloisKeys(keys, tuple(self.context.key_parms_id))

@@ -10,9 +10,11 @@ Conventions
 -----------
 * Moduli are below 2^60, so residues and every lazy range on the CKKS path
   (at most 5q) stay below 2^63: ordinary signed comparisons are exact for
-  them. Words that use all 64 bits (Shoup quotients, Barrett ratios, the
-  halves of a 128-bit product) are negative as int64 and only ever pass
-  through wrapping +, -, * and the bit operations below.
+  them. The Shoup key switch's lazy sum may reach 2^64 and is reduced with
+  the unsigned `cond_sub_u64`. Words that use all 64 bits (Shoup
+  quotients, Barrett ratios, the halves of a 128-bit product) are negative
+  as int64 and only ever pass through wrapping +, -, * and the bit
+  operations below.
 * `>>` on int64 is an arithmetic shift, so every 32-bit split masks with
   `& 0xFFFFFFFF` after shifting.
 * int64 `*` and `+` wrap modulo 2^64 on both the CPU and CUDA, which is the
@@ -62,6 +64,16 @@ def add_carry(a, b):
 def cond_sub(a, q):
     """a - q if a >= q else a (one correction step; a < 2^63)."""
     return torch.where(a >= q, a - q, a)
+
+
+_SIGN = -(1 << 63)
+
+
+def cond_sub_u64(a, q):
+    """a - q if a >= q, comparing as unsigned 64-bit words: for sums and
+    multiples of q that may pass 2^63 (flipping the sign bit maps unsigned
+    order onto signed order)."""
+    return torch.where((a ^ _SIGN) >= (q ^ _SIGN), a - q, a)
 
 
 def add_mod(a, b, q):

@@ -55,7 +55,8 @@ def test_no_import_statement_names_jax_or_seal_tpu(path):
 
 def test_every_module_listed():
     assert {"seal_tpu_torch.evaluator", "seal_tpu_torch.ops.ntt",
-            "seal_tpu_torch.ops.keyswitch", "seal_tpu_torch.interop"} <= set(MODULES)
+            "seal_tpu_torch.ops.keyswitch", "seal_tpu_torch.interop",
+            "seal_tpu_torch.config", "seal_tpu_torch.ops.galois"} <= set(MODULES)
 
 
 def _parms():

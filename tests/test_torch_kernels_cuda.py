@@ -74,6 +74,113 @@ def test_keyswitch_kernel_matches_plain(J, I, n):
     assert torch.equal(kernel.cpu(), plain)
 
 
+@pytest.mark.parametrize("J,I,n", [(1, 1, 64), (8, 9, 16384), (4, 10, 16384), (15, 17, 256)])
+def test_keyswitch_shoup_kernel_matches_plain_and_k2(J, I, n):
+    """K3 against its plain version and against K2. t and k reach q - 1,
+    and keys at q - 1 have quotients with the top bit set; 2·J·max q stays
+    below 2^64 (54-bit moduli, J <= 15)."""
+    rng = np.random.default_rng(J * 100 + I + 7)
+    moduli = [m.value for m in CoeffModulus.create(max(n, 1024), [54] * I)]
+    q = np.array(moduli, dtype=np.int64)[:, None]
+    t = rng.integers(0, q, (J, I, n), dtype=np.int64)
+    k = rng.integers(0, q, (J, 2, I, n), dtype=np.int64)
+    t[..., 0] = k[..., 0] = k[..., 1] = q[:, 0] - 1
+    t, k = torch.from_numpy(t), torch.from_numpy(k)
+    kq = keyswitch.key_quotients(k, moduli)
+    assert bool((kq[..., 0] < 0).all())
+    consts = keyswitch.pack_mod_consts(moduli, "cpu")
+    plain = keyswitch.keyswitch_inner_shoup_plain(t, k, kq, consts, max(moduli))
+    before = cuda.launches["keyswitch_inner_shoup"]
+    kernel = keyswitch.keyswitch_inner_shoup(
+        t.cuda(), k.cuda(), kq.cuda(), consts.cuda(), max(moduli))
+    assert cuda.launches["keyswitch_inner_shoup"] == before + 1
+    assert torch.equal(kernel.cpu(), plain)
+    assert torch.equal(kernel, keyswitch.keyswitch_inner(t.cuda(), k.cuda(), consts.cuda()))
+    kq_dev = keyswitch.key_quotients(k.cuda(), moduli)
+    assert torch.equal(kq_dev.cpu(), kq)
+
+
+@pytest.mark.parametrize("J,bits,n", [(7, 60, 16384), (8, 60, 4096), (3, 61, 4096)])
+def test_keyswitch_shoup_kernel_matches_plain_past_2_63(J, bits, n):
+    """t spans all 64 bits, so lazy sums (and, with 61-bit q, q·2^2) pass
+    2^63; the kernel compares unsigned, and so must the plain version."""
+    from seal_tpu_torch.utils import numth
+
+    I = 2
+    moduli = numth.get_primes(2 * n, bits, I)
+    rng = np.random.default_rng(J * 100 + bits)
+    t = torch.from_numpy(rng.integers(0, 1 << 64, (J, I, n), dtype=np.uint64).view(np.int64))
+    q = np.array(moduli, dtype=np.int64)[:, None]
+    k = torch.from_numpy(rng.integers(0, q, (J, 2, I, n), dtype=np.int64))
+    kq = keyswitch.key_quotients(k, moduli)
+    consts = keyswitch.pack_mod_consts(moduli, "cpu")
+    plain = keyswitch.keyswitch_inner_shoup_plain(t, k, kq, consts, max(moduli))
+    kernel = keyswitch.keyswitch_inner_shoup(
+        t.cuda(), k.cuda(), kq.cuda(), consts.cuda(), max(moduli))
+    assert torch.equal(kernel.cpu(), plain)
+    assert bool(((plain >= 0) & (plain < torch.from_numpy(q))).all())
+
+
+def test_keyswitch_shoup_kernel_refuses_overflow():
+    moduli = [m.value for m in CoeffModulus.create(1024, [60])]
+    consts = keyswitch.pack_mod_consts(moduli, "cuda")
+    t = torch.zeros((16, 1, 64), dtype=torch.int64, device="cuda")
+    k = torch.zeros((16, 2, 1, 64), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="2·J·max q"):
+        keyswitch.keyswitch_inner_shoup(t, k, k, consts, max(moduli))
+
+
+@pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
+def test_rotations_on_card_match_cpu(alpha, bits):
+    """rotate_vector (with the NAF fallback), complex_conjugate and both
+    hoisted branches at n = 1024, with the Shoup flag off and on: the
+    card's bits equal the plain path's, and the flag changes no bit."""
+    from seal_tpu_torch import interop
+    from seal_tpu_torch.config import config
+
+    n = 1024
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
+    parms.set_special_modulus_size(alpha)
+    ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE)
+    cpu = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(alpha)
+    kg = st.KeyGenerator(ctx, gen)
+    steps = list(range(1, 18))
+    gk = kg.create_galois_keys(steps=steps + [0])
+    cd = ctx.first_context_data()
+    plain = st.Plaintext(ntt.ntt_forward(
+        torch.randint(0, 1 << 20, (cd.coeff_modulus_size, n), device="cuda", generator=gen),
+        cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
+    ct = st.Encryptor(ctx, kg.secret_key(), gen).encrypt_symmetric(plain)
+    ct_cpu = interop.ciphertext_from_numpy(cpu, ct.to_numpy(), ct.parms_id, ct.scale)
+    gk_cpu = interop.galois_keys_from_numpy(
+        cpu, [None if k is None else k.cpu().numpy().view(np.uint64) for k in gk.keys])
+
+    def run(ev, keys, c):
+        outs = [ev.rotate_vector(c, 18, keys), ev.complex_conjugate(c, keys)]
+        outs += ev.rotate_batch_hoisted(c, [3, 7], keys)
+        outs += ev.rotate_batch_hoisted(c, steps, keys)
+        return [o.to_numpy() for o in outs]
+
+    old = config.keyswitch_shoup
+    try:
+        got = {}
+        for shoup in (False, True):
+            config.keyswitch_shoup = shoup
+            before = cuda.launches["keyswitch_inner_shoup"]
+            got[shoup] = run(st.Evaluator(ctx), gk, ct)
+            assert (cuda.launches["keyswitch_inner_shoup"] > before) == shoup
+        config.keyswitch_shoup = False
+        want = run(st.Evaluator(cpu), gk_cpu, ct_cpu)
+    finally:
+        config.keyswitch_shoup = old
+    for a, b, c in zip(got[False], got[True], want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
+
+
 @pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
 def test_pipeline_on_card_matches_cpu(alpha, bits):
     """multiply -> relinearize -> rescale and the fused tail at n = 1024:

@@ -68,6 +68,19 @@ def test_neg_mod():
         _np(modarith.neg_mod(_t(a), _t(q))), _np(limb.neg_mod(_pair(a), _pair(q))))
 
 
+def test_cond_sub_u64():
+    """Unsigned order across 2^63: sums and multiples q·2^s of 60- and
+    61-bit moduli that are negative as int64, against limb.cond_sub."""
+    rng = np.random.default_rng(6)
+    q = np.array([[(1 << 61) - 1], [PRIMES[-1] << 3], [PRIMES[-1] << 2], [PRIMES[0]]],
+                 dtype=np.uint64)
+    a = rng.integers(0, 1 << 64, (4, 257), dtype=np.uint64)
+    a[:, 0], a[:, 1], a[:, 2] = q[:, 0], q[:, 0] - np.uint64(1), np.uint64(MASK64)
+    got = modarith.cond_sub_u64(_t(a), _t(q))
+    np.testing.assert_array_equal(_np(got), _np(limb.cond_sub(_pair(a), _pair(q))))
+    np.testing.assert_array_equal(_np(got), np.where(a >= q, a - q, a))
+
+
 @pytest.mark.parametrize("full_width", [False, True])
 def test_barrett_reduce_64(full_width):
     """Any u64 input, including words at and above 2^63."""

@@ -93,6 +93,31 @@ def test_plain_matches_pallas_interpret(n):
     np.testing.assert_array_equal(inv.numpy().view(np.uint64), x)
 
 
+@pytest.mark.parametrize("log_n", [6, 8])
+def test_compact_table_kernel_matches_port(log_n):
+    """K4, seal_tpu's _ntt_kernel_compact (per-stage distinct roots, in
+    interpret mode), against the port's transforms, whose kernel K1 reads
+    the same roots in the same order: forward stage s uses
+    root_powers[2^s : 2^(s+1)], inverse the consecutive blocks of
+    inv_root_powers from offset 1, then the folded n^{-1} pair."""
+    n = 1 << log_n
+    moduli = [m.value for m in CoeffModulus.create(n, [30, 45])]
+    t = ntt.make_ntt_tables(log_n, moduli, "cpu")
+    pt = ntt_pallas.build_pallas_tables_compact(log_n, moduli)
+    rng = np.random.default_rng(log_n)
+    x = np.stack([rng.integers(0, q, n, dtype=np.int64) for q in moduli]).astype(np.uint64)
+    fwd = ntt.ntt_forward_plain(torch.from_numpy(x.view(np.int64)), t)
+    np.testing.assert_array_equal(
+        fwd.numpy().view(np.uint64),
+        _u64(ntt_pallas.ntt_forward_pallas(_pair(x), pt, interpret=True)))
+    inv = ntt.ntt_inverse_plain(fwd, t)
+    np.testing.assert_array_equal(
+        inv.numpy().view(np.uint64),
+        _u64(ntt_pallas.ntt_inverse_pallas(_pair(fwd.numpy().view(np.uint64)), pt,
+                                           interpret=True)))
+    np.testing.assert_array_equal(inv.numpy().view(np.uint64), x)
+
+
 def test_lazy_ranges_and_round_trip():
     n, log_n = 1024, 10
     moduli = _moduli(n)
