@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. build: compile every CUDA kernel from seal_tpu_torch/csrc (one nvcc per
    source, started together).
-2. K1 (the NTT kernel), 3. K2 (the key-switch inner product, 128-bit route)
-   and 4. K3 (the key-switch inner product, Shoup-quotient route) at
-   N=16384, at the shapes the main paths give them: each held bit for bit
-   against its plain PyTorch version on CPU copies of the same inputs (K3
-   also against K2), with the kernel's median time (CUDA events), the plain
+2. K1 (the NTT kernel, forward and inverse) at N=16384 at every shape the
+   paths below give it (2 to 56 rows), and at n=32768 and 131072 on 2
+   rows. 3. K2 (the key-switch inner product, 128-bit route) and 4. K3 (the
+   key-switch inner product, Shoup-quotient route) at N=16384, at the
+   shapes the main paths give them. Each is held bit for bit against its
+   plain PyTorch version on CPU copies of the same inputs (K3 also against
+   K2), with the kernel's median time in two ways, `ms` around one call
+   with CUDA events (host time included) and `device_ms` with its calls
+   replayed from a CUDA graph (the host out of the way), the plain
    version's time on the host CPU, and the least time the card could take
    (bytes at 3.35 TB/s or 32-bit integer multiplies at 16.7 T/s, whichever
    is larger).
@@ -29,7 +33,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rotate_batch_hoisted(1..8), with the Shoup flag off and on (bit for bit
    the same), the card against the plain path on CPU copies, and every
    decryption against the exact automorphism of the plaintext.
-7. kernels: one JSON line with every ported kernel, its check and times.
+7. K1 passes: the device time of each of K1's two kernels at phase 2's
+   shapes, from torch.profiler's CUDA trace (after the paths, so that the
+   profiler does not weigh on their host-clock times).
+8. kernels: one JSON line with every ported kernel, its check and times.
 
 Launch counts are zeroed just before each run of a path and read just after.
 
@@ -117,45 +124,113 @@ def random_residues(shape, moduli, gen, factor=1):
 # phases 2 and 3: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_ntt(gen):
+# K1's shapes on the paths run at N=16384 (direction, shape): rows 8 (two
+# towers), 14, 16, 24 and 56 forward; 2, 4, 6 and 8 inverse
+NTT_SHAPES = (("ntt_forward", (4, 2, N)), ("ntt_forward", (8, 1, N)),
+              ("ntt_forward", (2, 7, N)), ("ntt_forward", (2, 8, N)),
+              ("ntt_forward", (3, 8, N)), ("ntt_forward", (7, 8, N)),
+              ("ntt_inverse", (2, 1, N)), ("ntt_inverse", (2, 2, N)),
+              ("ntt_inverse", (2, 3, N)), ("ntt_inverse", (8, N)))
+NTT_LARGE = (15, 17)            # n = 32768 and 131072 at 2 rows
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn, reps=10):
+    """Median milliseconds of one call of fn on the card with the host out of
+    the way: GRAPH_CALLS calls captured in one CUDA graph, each replay timed
+    with CUDA events and divided by GRAPH_CALLS."""
     import torch
 
-    from seal_tpu_torch import CoeffModulus
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return cuda_ms(graph.replay, reps=reps) / GRAPH_CALLS
+
+
+def ntt_case(kind, shape, moduli, gen):
+    """K1 at one shape: bit for bit against the plain version (lazy off and
+    on), timed. Returns its line and the timed call."""
+    import torch
+
     from seal_tpu_torch.ops import ntt
 
+    log_n = shape[-1].bit_length() - 1
+    n, L = shape[-1], shape[-2]
+    t_dev = ntt.make_ntt_tables(log_n, moduli[:L], "cuda")
+    t_cpu = ntt.make_ntt_tables(log_n, moduli[:L], "cpu")
+    rows = math.prod(shape[:-1])
+    kernel = getattr(ntt, f"{kind}_cuda")
+    plain = getattr(ntt, f"{kind}_plain")
+    factor = 4 if kind == "ntt_forward" else 2
+    q = torch.tensor(moduli[:L], dtype=torch.int64)
+    x = random_residues(shape, moduli[:L], gen, factor)
+    x[..., 0] = factor * q - 1                  # the largest input and q - 1
+    x[..., 1] = q - 1
+    x_dev = x.cuda()
+    want = {}
+    for lazy in (False, True):
+        got = kernel(x_dev, t_dev, lazy)
+        torch.cuda.synchronize()
+        want[lazy] = plain(x, t_cpu, lazy)
+        require(torch.equal(got.cpu(), want[lazy]), f"{kind} lazy={lazy} {shape} bit-exact")
+    line = {"phase": "K1", "kernel": kind, "shape": list(shape), "rows": rows,
+            "bit_exact": True, "max_abs_err": 0}
+    run = lambda: kernel(x_dev, t_dev, False)        # noqa: E731
+    line["ms"] = cuda_ms(run)
+    line["device_ms"] = graph_ms(run)
+    line["plain_ms"] = host_ms(lambda: plain(x, t_cpu, False), reps=1)
+    # data in and out once, the primes' op and quotient tables once
+    nbytes = 2 * rows * n * 8 + 2 * L * n * 8
+    muls = rows * (n // 2) * log_n * (2 * MUL_LO + MUL_HI)
+    line["bound_ms"], line["bound_by"] = bound(nbytes, muls)
+    emit(line)
+    return line, run
+
+
+def phase_ntt(gen):
+    """({kernel: its line at the shape the kernels line reports},
+    [(kernel, shape, timed call)] at every shape)."""
+    from seal_tpu_torch import CoeffModulus
+
     moduli = [m.value for m in CoeffModulus.create(N, MODES["alpha2_fused"]["bits"])]
-    results = {}
-    # [10, N]: the α=2 key tower; [7, 8, N]: the α=1 body of the diagonal-
-    # skip decompose (the largest forward); [8, N]: the inverse of c2
-    for shape in ((10, N), (7, 8, N), (8, N)):
-        L = shape[-2]
-        t_dev = ntt.make_ntt_tables(LOG_N, moduli[:L], "cuda")
-        t_cpu = ntt.make_ntt_tables(LOG_N, moduli[:L], "cpu")
-        rows = 1
-        for s in shape[:-1]:
-            rows *= s
-        for kind, kernel, plain, in_factor in (
-                ("ntt_forward", ntt.ntt_forward_cuda, ntt.ntt_forward_plain, 4),
-                ("ntt_inverse", ntt.ntt_inverse_cuda, ntt.ntt_inverse_plain, 2)):
-            x = random_residues(shape, moduli[:L], gen, in_factor)
-            x_dev = x.cuda()
-            for lazy in (False, True):
-                got = kernel(x_dev, t_dev, lazy).cpu()
-                want = plain(x, t_cpu, lazy)
-                require(torch.equal(got, want), f"{kind} lazy={lazy} {shape} bit-exact")
-            ms = cuda_ms(lambda: kernel(x_dev, t_dev, False))
-            plain_ms = host_ms(lambda: plain(x, t_cpu, False), reps=1)
-            # data in and out once, the prime's op and quotient tables once
-            nbytes = 2 * rows * N * 8 + 2 * L * N * 8
-            muls = rows * (N // 2) * LOG_N * (2 * MUL_LO + MUL_HI)
-            b_ms, b_by = bound(nbytes, muls)
-            line = {"phase": "K1", "kernel": kind, "shape": list(shape),
-                    "bit_exact": True, "max_abs_err": 0, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-            emit(line)
-            results[(kind, shape)] = line
-    return {"ntt_forward": results[("ntt_forward", (7, 8, N))],
-            "ntt_inverse": results[("ntt_inverse", (8, N))]}
+    results, runs = {}, []
+    cases = [(kind, shape, moduli) for kind, shape in NTT_SHAPES]
+    for log_n in NTT_LARGE:
+        big = [m.value for m in CoeffModulus.create(1 << log_n, [50, 50])]
+        cases += [(kind, (2, 1 << log_n), big) for kind in ("ntt_forward", "ntt_inverse")]
+    for kind, shape, mods in cases:
+        results[(kind, shape)], run = ntt_case(kind, shape, mods, gen)
+        runs.append((kind, shape, run))
+    return ({"ntt_forward": results[("ntt_forward", (7, 8, N))],
+             "ntt_inverse": results[("ntt_inverse", (8, N))]}, runs)
+
+
+def phase_ntt_passes(runs):
+    """Device microseconds of each of K1's kernels per transform at every
+    shape of phase 2, from torch.profiler's CUDA trace of GRAPH_CALLS calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for kind, shape, run in runs:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(GRAPH_CALLS):
+                run()
+            torch.cuda.synchronize()
+        passes = {}
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+                passes[name.replace("void ", "").strip()] = ev.device_time_total / ev.count
+        emit({"phase": "K1_passes", "kernel": kind, "shape": list(shape), "pass_us": passes})
 
 
 def key_shapes():
@@ -180,14 +255,16 @@ def phase_keyswitch(gen):
         got = keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev).cpu()
         want = keyswitch.keyswitch_inner_plain(t, k, consts)
         require(torch.equal(got, want), f"keyswitch_inner (J, I) = {(J, I)} bit-exact")
-        ms = cuda_ms(lambda: keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev))
+        run = lambda: keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev)  # noqa: E731
+        ms, device_ms = cuda_ms(run), graph_ms(run)
         plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_plain(t, k, consts))
         nbytes = (J * I * N + 2 * J * I * N + 2 * I * N) * 8
         # per (i, x): 2J full products, then two Barrett-128 reductions
         muls = I * N * (2 * J * (MUL_LO + MUL_HI) + 2 * (4 * MUL_LO + 3 * MUL_HI))
         b_ms, b_by = bound(nbytes, muls)
         line = {"phase": "K2", "kernel": "keyswitch_inner", "shape": [J, I, N],
-                "bit_exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                "bit_exact": True, "max_abs_err": 0, "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
         results[mode] = line
@@ -217,8 +294,9 @@ def phase_keyswitch_shoup(gen):
                 f"keyswitch_inner_shoup {(J, I)} equals keyswitch_inner")
         require(torch.equal(keyswitch.key_quotients(k_dev, moduli).cpu(), kq),
                 f"key quotients {(J, I)} on the card equal the CPU's")
-        ms = cuda_ms(lambda: keyswitch.keyswitch_inner_shoup_cuda(
-            t_dev, k_dev, kq_dev, c_dev, max_q))
+        run = lambda: keyswitch.keyswitch_inner_shoup_cuda(  # noqa: E731
+            t_dev, k_dev, kq_dev, c_dev, max_q)
+        ms, device_ms = cuda_ms(run), graph_ms(run)
         plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_shoup_plain(
             t, k, kq, consts, max_q))
         nbytes = (J * I * N + 4 * J * I * N + 2 * I * N) * 8
@@ -227,7 +305,7 @@ def phase_keyswitch_shoup(gen):
         b_ms, b_by = bound(nbytes, muls)
         line = {"phase": "K3", "kernel": "keyswitch_inner_shoup", "shape": [J, I, N],
                 "bit_exact": True, "equals_k2": True, "max_abs_err": 0, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
         results[mode] = line
     return {"keyswitch_inner_shoup": results["alpha1_parity"]}
@@ -509,7 +587,7 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES)})
     gen = torch.Generator().manual_seed(SEED)
-    kernels = phase_ntt(gen)
+    kernels, ntt_runs = phase_ntt(gen)
     kernels.update(phase_keyswitch(gen))
     kernels.update(phase_keyswitch_shoup(gen))
 
@@ -519,10 +597,12 @@ def main() -> int:
         add_counts(total, phase_rotations(mode, spec))
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
+    phase_ntt_passes(ntt_runs)
 
     # K4 (_ntt_kernel_compact) computes K1's transform from the same roots
     # that csrc/ntt.cu reads, in the same order: ntt.cu is its counterpart
-    ntt_tpu = "seal_tpu/ops/ntt_pallas.py:542, seal_tpu/ops/ntt_pallas.py:428"
+    ntt_tpu = ("seal_tpu/ops/ntt_pallas.py:542, seal_tpu/ops/ntt_pallas.py:717, "
+               "seal_tpu/ops/ntt_pallas.py:428")
     replaces = {
         "ntt_forward": ntt_tpu,
         "ntt_inverse": ntt_tpu,
@@ -536,7 +616,8 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": total[name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "device_ms": k["device_ms"],
+         "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
          "shape": k["shape"]}
         for name, k in kernels.items()]})

@@ -6,8 +6,11 @@ first use into build/seal_tpu_torch/ beside the package (a directory that
 .gitignore lists), under a name that carries a hash of its source and flags,
 so an edited source is never served a stale library.
 
-`launches` counts kernel launches per wrapper. Only the wrappers in
-ops/ntt.py and ops/keyswitch.py add to it, once per kernel launch.
+`launches` counts calls of each kernel per wrapper. Only the wrappers in
+ops/ntt.py and ops/keyswitch.py add to it, once per call that launches. A
+key-switch call is one kernel launch. An NTT call is one transform and
+counts once, though it launches one kernel for n <= 512 and two (the column
+and the chunk pass of csrc/ntt.cu) for larger n.
 """
 
 from __future__ import annotations

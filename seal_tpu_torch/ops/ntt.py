@@ -197,13 +197,13 @@ def ntt_inverse_plain(x, t: NTTTables, lazy: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# K1 wrappers (csrc/ntt.cu)
+# K1 wrappers (csrc/ntt.cu): every n from 2 to 131072, one or two kernel
+# launches per transform, counted once
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sealtorch_ntt_max_log_n": [],
     "sealtorch_ntt_forward": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                               _I, _P],
     "sealtorch_ntt_inverse": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -217,13 +217,7 @@ def _check_cuda(x: torch.Tensor, t: NTTTables):
         raise ValueError(f"the NTT kernel needs a CUDA tensor, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("the NTT kernel needs a contiguous input")
-    lib = cuda.library("ntt", _SIGNATURES)
-    if t.log_n > lib.sealtorch_ntt_max_log_n():
-        raise ValueError(
-            f"the NTT kernel holds a row of at most "
-            f"{1 << lib.sealtorch_ntt_max_log_n()} words in shared memory; "
-            f"n = {1 << t.log_n} is not supported")
-    return lib
+    return cuda.library("ntt", _SIGNATURES)
 
 
 def ntt_forward_cuda(x, t: NTTTables, lazy: bool = False):

@@ -26,37 +26,68 @@ def _card():
 
 
 def _residues(shape, moduli, factor, seed):
+    """Residues below factor·q of each row's prime, with factor·q - 1 and
+    q - 1 in the first two words of every row."""
     rng = np.random.default_rng(seed)
-    q = np.array(moduli, dtype=np.uint64)[:, None] * np.uint64(factor)
+    q1 = np.array(moduli, dtype=np.uint64)[:, None]
+    q = q1 * np.uint64(factor)
     x = rng.integers(0, 1 << 62, shape, dtype=np.int64).astype(np.uint64) % q
     x[..., :, 0] = q[:, 0] - np.uint64(1)
+    x[..., :, 1] = q1[:, 0] - np.uint64(1)
     return torch.from_numpy(x.view(np.int64))
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (3, 64), (2, 3, 1024), (4, 2, 16384)])
+_NTT_BITS = [30, 50, 60, 40, 45, 55, 35, 58]
+
+
+def _ntt_moduli(n, count):
+    from seal_tpu_torch.utils import numth
+
+    return [numth.get_primes(2 * max(n, 64), bits, 1)[0] for bits in _NTT_BITS[:count]]
+
+
+# rows 1, 2, 3 as one tower of that many primes, at every log n (each
+# one-pass size and each split of the two passes); 56 as [7, 8, n], the
+# largest forward of the main path, at some of them. 56 rows at n = 2^17 is
+# left out (the plain version takes too long there).
+_NTT_SIZES = [(log_n, rows) for log_n in range(1, 18) for rows in (1, 2, 3)] + \
+             [(log_n, 56) for log_n in (1, 2, 6, 10, 11, 12, 14, 15)]
+
+
+@pytest.mark.parametrize("log_n,rows", _NTT_SIZES)
 @pytest.mark.parametrize("direction,factor", [("forward", 4), ("inverse", 2)])
-def test_ntt_kernel_matches_plain(shape, direction, factor):
-    n = shape[-1]
-    log_n = n.bit_length() - 1
-    moduli = [m.value for m in CoeffModulus.create(max(n, 64), [30, 50, 60][:shape[-2]])]
+def test_ntt_kernel_matches_plain(log_n, rows, direction, factor):
+    n = 1 << log_n
+    shape = (7, 8, n) if rows == 56 else (rows, n)
+    moduli = _ntt_moduli(n, shape[-2])
     t_cpu = ntt.make_ntt_tables(log_n, moduli, "cpu")
     t_dev = ntt.make_ntt_tables(log_n, moduli, "cuda")
-    x = _residues(shape, moduli, factor, seed=n)
+    x = _residues(shape, moduli, factor, seed=n + rows)
     for lazy in (False, True):
         plain = getattr(ntt, f"ntt_{direction}_plain")(x, t_cpu, lazy)
         kernel = getattr(ntt, f"ntt_{direction}_cuda")(x.cuda(), t_dev, lazy)
+        torch.cuda.synchronize()
         assert torch.equal(kernel.cpu(), plain)
 
 
-def test_ntt_dispatch_launches_kernel_and_refuses_large_rows():
-    moduli = [m.value for m in CoeffModulus.create(32768, [50, 50])]
-    t = ntt.make_ntt_tables(10, [m.value for m in CoeffModulus.create(1024, [50])], "cuda")
-    before = cuda.launches["ntt_forward"]
-    ntt.ntt_forward(torch.zeros((1, 1024), dtype=torch.int64, device="cuda"), t)
-    assert cuda.launches["ntt_forward"] == before + 1
-    big = ntt.make_ntt_tables(15, moduli, "cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        ntt.ntt_forward(torch.zeros((2, 32768), dtype=torch.int64, device="cuda"), big)
+@pytest.mark.parametrize("log_n", [15, 17])
+def test_ntt_dispatch_runs_large_n_through_the_kernel(log_n):
+    """n = 32768 and 131072, which the one-block-per-row kernel refused, go
+    through the kernel: one count per transform, the plain version's bits."""
+    n = 1 << log_n
+    moduli = _ntt_moduli(n, 2)
+    t_dev = ntt.make_ntt_tables(log_n, moduli, "cuda")
+    t_cpu = ntt.make_ntt_tables(log_n, moduli, "cpu")
+    x = _residues((2, n), moduli, 2, seed=log_n)
+    before = dict(cuda.launches)
+    fwd = ntt.ntt_forward(x.cuda(), t_dev)
+    assert cuda.launches["ntt_forward"] == before["ntt_forward"] + 1
+    back = ntt.ntt_inverse(fwd, t_dev)
+    assert cuda.launches["ntt_inverse"] == before["ntt_inverse"] + 1
+    want = ntt.ntt_forward_plain(x, t_cpu)
+    assert torch.equal(fwd.cpu(), want)
+    assert torch.equal(back.cpu(), ntt.ntt_inverse_plain(want, t_cpu))
+    assert torch.equal(back.cpu(), x % torch.tensor(moduli).reshape(2, 1))
 
 
 @pytest.mark.parametrize("J,I,n", [(1, 1, 64), (8, 9, 16384), (4, 10, 16384), (64, 2, 256)])
@@ -181,13 +212,15 @@ def test_rotations_on_card_match_cpu(alpha, bits):
         np.testing.assert_array_equal(b, c)
 
 
-@pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
-def test_pipeline_on_card_matches_cpu(alpha, bits):
-    """multiply -> relinearize -> rescale and the fused tail at n = 1024:
-    the card's bits equal the plain path's on the same keys and inputs."""
+@pytest.mark.parametrize("alpha,bits,n", [(1, [50] * 4 + [60], 1024),
+                                          (2, [50] * 4 + [55] * 2, 1024),
+                                          (1, [50] * 3 + [60], 32768)])
+def test_pipeline_on_card_matches_cpu(alpha, bits, n):
+    """multiply -> relinearize -> rescale and the fused tail at n = 1024,
+    and at n = 32768 with 4 primes (two-pass transforms on the card): the
+    card's bits equal the plain path's on the same keys and inputs."""
     from seal_tpu_torch import interop
 
-    n = 1024
     parms = st.EncryptionParameters(st.SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
