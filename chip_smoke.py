@@ -6,26 +6,28 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. build: compile every CUDA kernel from seal_tpu_torch/csrc (one nvcc per
-   source, started together).
+   source, started together); then the host rate of one bulk draw from
+   SEAL's seeded blake2xb byte stream (seal_tpu_torch/randomgen.py), which
+   every key and encryption below draws from.
 2. K1 (the NTT kernel, forward and inverse) at N=16384 at every shape the
    paths below give it (1 to 72 rows: the CKKS towers, BFV's auxiliary
    base Bsk of 61-bit primes with forward inputs up to 4q, the [8, 9, N]
    key-switch decomposition of BFV/BGV and the one-prime tower of the plain
-   modulus t), and at n=32768 and 131072 on 2 rows. 3. K2 (the key-switch inner product, 128-bit route) and 4. K3 (the
-   key-switch inner product, Shoup-quotient route) at N=16384, at the
-   shapes the main paths give them. Each is held bit for bit against its
-   plain PyTorch version on CPU copies of the same inputs (K3 also against
-   K2), with the kernel's median time in two ways, `ms` around one call
-   with CUDA events (host time included) and `device_ms` with its calls
-   replayed from a CUDA graph (the host out of the way), the plain
-   version's time on the host CPU, and the least time the card could take
-   (bytes at 3.35 TB/s or 32-bit integer multiplies at 16.7 T/s, whichever
-   is larger).
+   modulus t), and at n=32768 and 131072 on 2 rows. 3. K2 (the key-switch
+   inner product, 128-bit route) and 4. K3 (the key-switch inner product,
+   Shoup-quotient route) at N=16384, at the shapes the main paths give
+   them. Each is held bit for bit against its plain PyTorch version on CPU
+   copies of the same inputs (K3 also against K2), with the kernel's
+   median time in two ways, `ms` around one call with CUDA events (host
+   time included) and `device_ms` with its calls replayed from a CUDA
+   graph (the host out of the way), the plain version's time on the host
+   CPU, and the least time the card could take (bytes at 3.35 TB/s or
+   32-bit integer multiplies at 16.7 T/s, whichever is larger).
 5. pipeline: CKKS n=16384 with 8 data primes in both modes of the repo's
    bench.py: α=2 (bits [44]*8 + [43]*2) multiply -> relinearize_rescale, and
    α=1 (bits [48]*8 + [54]) multiply -> relinearize -> rescale_to_next. Keys
    and two sparse plaintexts (a few coefficients of about 2^40) are made on
-   the card from one torch.Generator; the card's result is held bit for bit
+   the card from a random seed; the card's result is held bit for bit
    against the same pipeline on CPU copies (the plain path), and its
    decryption against the exact negacyclic product m1·m2/q_last. It runs
    again with config.keyswitch_shoup on, bit for bit as with it off.
@@ -37,19 +39,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    decryption against the exact automorphism of the plaintext.
 7. BFV and BGV, each at SEAL's default 128-bit parameters for n=16384
    (CoeffModulus.bfv_default: 8 data primes and one special prime) with a
-   20-bit batching t: the card makes the secret, relinearization and
-   Galois keys (rows step 1, columns); two random slot vectors are encoded
-   and encrypted; multiply -> relinearize -> mod_switch_to_next ->
-   rotate_rows(1) / rotate_columns, square and multiply_plain run with the
-   Shoup flag off and on (bit for bit the same), every output is held bit
-   for bit against the same ops on CPU copies (the plain path), and every
-   decode must equal the exact slotwise result mod t, rotated as the 2 x
-   n/2 slot matrix says. Launch counts and host-clock medians per op.
-8. K1 passes: the device time of each of K1's two kernels at phase 2's
+   20-bit batching t: the card makes the secret, public, relinearization
+   and Galois keys (rows step 1, columns) from a random seed; two random
+   slot vectors are encoded and encrypted (the first with the public key,
+   the second with the secret key); multiply -> relinearize ->
+   mod_switch_to_next -> rotate_rows(1) / rotate_columns, square and
+   multiply_plain run with the Shoup flag off and on (bit for bit the
+   same), every output is held bit for bit against the same ops on CPU
+   copies (the plain path), the invariant noise budget of every ciphertext
+   on the card against the CPU's, and every decode must equal the exact
+   slotwise result mod t, rotated as the 2 x n/2 slot matrix says.
+8. round trip, in both CKKS modes, the main path a user runs: from
+   parms.set_random_seed alone, keygen (secret, public, relinearization
+   keys) -> CKKSEncoder.encode of 8192 complex values from the unit disc
+   at scale 2^40 -> encrypt (public key) and encrypt_symmetric -> multiply
+   -> relinearize -> rescale (the fused tail at α=2) -> decrypt -> decode,
+   on the card and on the CPU: every key, plaintext, ciphertext and decoded
+   double bit for bit the same, and the decoded product within 1e-4 of
+   numpy's exact product.
+9. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-9. kernels: one JSON line with every ported kernel, its check and times.
+10. kernels: one JSON line with every ported kernel, its check and times.
 
+Phases 7 and 8 print, per step, the host-clock ms, the kernel launches and
+the bytes drawn from the byte stream with their rate.
 Launch counts are zeroed just before each run of a path and read just after.
 
 It needs one CUDA device, and ends with the line
@@ -77,6 +91,11 @@ MODES = {
 }
 # Multiplies of 32-bit words per 64x64-bit product: low half 3, high half 4.
 MUL_LO, MUL_HI = 3, 4
+
+
+def seed_words(seed):
+    """The 8-word random seed of a phase."""
+    return (seed,) + (0,) * 7
 
 
 def emit(obj):
@@ -122,16 +141,17 @@ def bound(nbytes, muls):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_residues(shape, moduli, gen, factor=1):
+def random_residues(shape, moduli, rng, factor=1):
     """int64 residues below factor·q of the prime of each row (row % L),
-    from words of 63 random bits (factor·q < 2^63)."""
+    from words of 63 random bits (factor·q < 2^63), drawn by a numpy
+    generator."""
+    import numpy as np
     import torch
 
     L = len(moduli)
-    q = torch.tensor(moduli, dtype=torch.int64).reshape(L, 1)
-    u = torch.randint(0, 1 << 62, tuple(shape), generator=gen, dtype=torch.int64) * 2
-    u += torch.randint(0, 2, tuple(shape), generator=gen, dtype=torch.int64)
-    return u % (q * factor)
+    q = np.array(moduli, dtype=np.int64).reshape(L, 1) * factor
+    u = rng.integers(0, 1 << 63, size=tuple(shape), dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(u % q)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +189,7 @@ def graph_ms(fn, reps=10):
     return cuda_ms(graph.replay, reps=reps) / GRAPH_CALLS
 
 
-def ntt_case(kind, shape, moduli, gen):
+def ntt_case(kind, shape, moduli, rng):
     """K1 at one shape: bit for bit against the plain version (lazy off and
     on), timed. Returns its line and the timed call."""
     import torch
@@ -185,7 +205,7 @@ def ntt_case(kind, shape, moduli, gen):
     plain = getattr(ntt, f"{kind}_plain")
     factor = 4 if kind == "ntt_forward" else 2
     q = torch.tensor(moduli[:L], dtype=torch.int64)
-    x = random_residues(shape, moduli[:L], gen, factor)
+    x = random_residues(shape, moduli[:L], rng, factor)
     x[..., 0] = factor * q - 1                  # the largest input and q - 1
     x[..., 1] = q - 1
     x_dev = x.cuda()
@@ -219,7 +239,7 @@ def exact_towers():
     return q, rns.RNSToolHost(N, rns.RNSBase(q[:-1]), t).base_Bsk.base, t
 
 
-def phase_ntt(gen):
+def phase_ntt(rng):
     """({kernel: its line at the shape the kernels line reports},
     [(kernel, shape, timed call)] at every shape)."""
     from seal_tpu_torch import CoeffModulus
@@ -238,7 +258,7 @@ def phase_ntt(gen):
         big = [m.value for m in CoeffModulus.create(1 << log_n, [50, 50])]
         cases += [(kind, (2, 1 << log_n), big) for kind in ("ntt_forward", "ntt_inverse")]
     for kind, shape, mods in cases:
-        results[(kind, shape)], run = ntt_case(kind, shape, mods, gen)
+        results[(kind, shape)], run = ntt_case(kind, shape, mods, rng)
         runs.append((kind, shape, run))
     return ({"ntt_forward": results[("ntt_forward", (7, 8, N))],
              "ntt_inverse": results[("ntt_inverse", (8, N))]}, runs)
@@ -271,7 +291,7 @@ def key_shapes():
     return (("alpha1_parity", 8, 9), ("alpha2_fused", 4, 10))
 
 
-def phase_keyswitch(gen):
+def phase_keyswitch(rng):
     import torch
 
     from seal_tpu_torch import CoeffModulus
@@ -280,8 +300,8 @@ def phase_keyswitch(gen):
     results = {}
     for mode, J, I in key_shapes():
         moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
-        t = random_residues((J, I, N), moduli, gen)
-        k = random_residues((J, 2, I, N), moduli, gen)
+        t = random_residues((J, I, N), moduli, rng)
+        k = random_residues((J, 2, I, N), moduli, rng)
         consts = keyswitch.pack_mod_consts(moduli, "cpu")
         t_dev, k_dev, c_dev = t.cuda(), k.cuda(), consts.cuda()
         got = keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev).cpu()
@@ -303,7 +323,7 @@ def phase_keyswitch(gen):
     return {"keyswitch_inner": results["alpha1_parity"]}
 
 
-def phase_keyswitch_shoup(gen):
+def phase_keyswitch_shoup(rng):
     import torch
 
     from seal_tpu_torch import CoeffModulus
@@ -313,8 +333,8 @@ def phase_keyswitch_shoup(gen):
     for mode, J, I in key_shapes():
         moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
         q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
-        t = random_residues((J, I, N), moduli, gen)
-        k = random_residues((J, 2, I, N), moduli, gen)
+        t = random_residues((J, I, N), moduli, rng)
+        k = random_residues((J, 2, I, N), moduli, rng)
         t[..., 0] = k[..., 0] = q[:, 0] - 1          # quotients with the top bit
         kq = keyswitch.key_quotients(k, moduli)
         consts, max_q = keyswitch.pack_mod_consts(moduli, "cpu"), max(moduli)
@@ -347,14 +367,11 @@ def phase_keyswitch_shoup(gen):
 # phase 4: the pipeline
 # ---------------------------------------------------------------------------
 
-def sparse_plain(gen, count=4, bits=40):
+def sparse_plain(rng, count=4, bits=40):
     """{index: value}: `count` coefficients of magnitude about 2^bits."""
-    import torch
-
-    idx = torch.randperm(N, generator=gen, device=gen.device)[:count].tolist()
-    mag = torch.randint(1 << (bits - 1), 1 << bits, (count,), generator=gen,
-                        device=gen.device).tolist()
-    sign = torch.randint(0, 2, (count,), generator=gen, device=gen.device).tolist()
+    idx = rng.permutation(N)[:count].tolist()
+    mag = rng.integers(1 << (bits - 1), 1 << bits, count).tolist()
+    sign = rng.integers(0, 2, count).tolist()
     return {i: (m if s else -m) for i, m, s in zip(idx, mag, sign)}
 
 
@@ -391,14 +408,15 @@ def run_mode(ev, fused, ct1, ct2, rk):
     return ev.rescale_to_next(ev.relinearize(prod, rk))
 
 
-def contexts(spec):
-    """(the card's context, the CPU's) for one mode."""
+def contexts(spec, seed):
+    """(the card's context, the CPU's) for one mode, with a random seed."""
     from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SEALContext
 
     parms = EncryptionParameters(SchemeType.CKKS)
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.create(N, spec["bits"]))
     parms.set_special_modulus_size(spec["alpha"])
+    parms.set_random_seed(seed)
     return SEALContext(parms), SEALContext(parms, device="cpu")
 
 
@@ -413,6 +431,48 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, dict(cuda.launches)
+
+
+PRNG = {"bytes": 0, "seconds": 0.0}
+
+
+def meter_prng():
+    """Count the bytes the port's byte streams hand out, and the host time
+    they take (the vectorised XOF runs inside generate)."""
+    from seal_tpu_torch import randomgen
+
+    generate = randomgen.UniformRandomGenerator.generate
+
+    def metered(self, byte_count):
+        t0 = time.perf_counter()
+        try:
+            return generate(self, byte_count)
+        finally:
+            PRNG["seconds"] += time.perf_counter() - t0
+            PRNG["bytes"] += byte_count
+
+    randomgen.UniformRandomGenerator.generate = metered
+
+
+def step(record, name, fn):
+    """fn() on the card, synchronised. record[name] gets its host-clock ms,
+    the kernel launches it made (counted from 0 just before, read just
+    after) and the bytes it drew from the byte stream, with their rate."""
+    import torch
+
+    from seal_tpu_torch import cuda
+
+    cuda.reset_launches()
+    PRNG.update(bytes=0, seconds=0.0)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    record[name] = {"ms": ms, "launches": dict(cuda.launches),
+                    "prng_mb": PRNG["bytes"] / 1e6,
+                    "prng_mb_per_s": (PRNG["bytes"] / 1e6 / PRNG["seconds"]
+                                      if PRNG["bytes"] else None)}
+    return out
 
 
 def add_counts(total, counts):
@@ -440,16 +500,16 @@ def phase_pipeline(mode, spec):
     from seal_tpu_torch.config import config
     from seal_tpu_torch.dtypes import u64_numpy
 
-    ctx, ctx_cpu = contexts(spec)
-    gen = torch.Generator(device=ctx.device).manual_seed(SEED)
+    ctx, ctx_cpu = contexts(spec, seed_words(SEED))
+    rng = np.random.default_rng(SEED)
 
     t0 = time.perf_counter()
-    kg = KeyGenerator(ctx, gen)
+    kg = KeyGenerator(ctx)
     sk = kg.secret_key()
     rk = kg.create_relin_keys()
-    enc = Encryptor(ctx, sk, gen)
+    enc = Encryptor(ctx, sk)
     scale = 2.0 ** 40
-    m1, m2 = sparse_plain(gen), sparse_plain(gen)
+    m1, m2 = sparse_plain(rng), sparse_plain(rng)
     ct1 = enc.encrypt_symmetric(encode_sparse(ctx, m1, scale))
     ct2 = enc.encrypt_symmetric(encode_sparse(ctx, m2, scale))
     torch.cuda.synchronize()
@@ -535,14 +595,13 @@ def phase_rotations(mode, spec):
     from seal_tpu_torch.config import config
     from seal_tpu_torch.dtypes import u64_numpy
 
-    ctx, ctx_cpu = contexts(spec)
-    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 1)
+    ctx, ctx_cpu = contexts(spec, seed_words(SEED + 1))
     t0 = time.perf_counter()
-    kg = KeyGenerator(ctx, gen)
+    kg = KeyGenerator(ctx)
     sk = kg.secret_key()
     gk = kg.create_galois_keys(steps=ROT_KEY_STEPS + [0])
-    m = sparse_plain(gen)
-    ct = Encryptor(ctx, sk, gen).encrypt_symmetric(encode_sparse(ctx, m, 2.0 ** 40))
+    m = sparse_plain(np.random.default_rng(SEED + 1))
+    ct = Encryptor(ctx, sk).encrypt_symmetric(encode_sparse(ctx, m, 2.0 ** 40))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -614,7 +673,8 @@ def phase_rotations(mode, spec):
 # ---------------------------------------------------------------------------
 
 def exact_contexts(scheme):
-    """(the card's context, the CPU's): bfv_default(N), a 20-bit batching t."""
+    """(the card's context, the CPU's): bfv_default(N), a 20-bit batching t,
+    a random seed."""
     from seal_tpu_torch import (
         CoeffModulus, EncryptionParameters, PlainModulus, SEALContext)
 
@@ -622,6 +682,7 @@ def exact_contexts(scheme):
     parms.set_poly_modulus_degree(N)
     parms.set_coeff_modulus(CoeffModulus.bfv_default(N))
     parms.set_plain_modulus(PlainModulus.batching(N, EXACT_T_BITS))
+    parms.set_random_seed(seed_words(SEED + int(scheme)))
     return SEALContext(parms), SEALContext(parms, device="cpu")
 
 
@@ -641,57 +702,53 @@ def exact_ops(ev, ct1, ct2, plain2, rk, gk):
             step("multiply_plain", lambda: ev.multiply_plain(ct1, plain2))]
 
 
-def run_exact_path(ctx, sk, rk, gk, gen, m1, m2):
-    """encode -> encrypt -> every op of exact_ops -> decrypt -> decode on the
-    card, each step's kernel launches counted from 0 just before it and read
-    just after. Returns (ciphertexts, decoded slots, launches per step,
-    inputs)."""
-    import torch
-
+def run_exact_path(ctx, keys, m1, m2):
+    """encode -> encrypt (m1 with the public key, m2 with the secret key) ->
+    every op of exact_ops -> the noise budget of every ciphertext ->
+    decrypt -> decode on the card, each step through `step`. Returns
+    (ciphertexts, decoded slots, noise budgets, per-step record, inputs)."""
     from seal_tpu_torch import BatchEncoder, Decryptor, Encryptor, Evaluator
-    from seal_tpu_torch import cuda
 
-    be, enc, dec, ev = BatchEncoder(ctx), Encryptor(ctx, sk, gen), Decryptor(ctx, sk), \
+    sk, pk, rk, gk = keys
+    be, enc, dec, ev = BatchEncoder(ctx), Encryptor(ctx, pk, sk), Decryptor(ctx, sk), \
         Evaluator(ctx)
-    per_step = {}
-
-    def count(name, fn):
-        cuda.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        per_step[name] = dict(cuda.launches)
-        return out
-
-    plains = count("encode", lambda: [be.encode(m) for m in (m1, m2)])
-    ct1, ct2 = count("encrypt", lambda: [enc.encrypt_symmetric(p) for p in plains])
-    outs = {name: count(name, fn) for name, fn in exact_ops(ev, ct1, ct2, plains[1], rk, gk)}
-    phases = count("decrypt", lambda: {k: dec.decrypt(v) for k, v in outs.items()})
-    slots = count("decode", lambda: {k: be.decode(p).cpu().numpy() for k, p in phases.items()})
-    return outs, slots, per_step, (ct1, ct2, plains[1])
+    record = {}
+    plains = step(record, "encode", lambda: [be.encode(m) for m in (m1, m2)])
+    ct1 = step(record, "encrypt_public", lambda: enc.encrypt(plains[0]))
+    ct2 = step(record, "encrypt_symmetric", lambda: enc.encrypt_symmetric(plains[1]))
+    outs = {name: step(record, name, fn)
+            for name, fn in exact_ops(ev, ct1, ct2, plains[1], rk, gk)}
+    every = {"fresh_public": ct1, "fresh_symmetric": ct2, **outs}
+    budgets = step(record, "noise_budget",
+                   lambda: {k: dec.invariant_noise_budget(v) for k, v in every.items()})
+    phases = step(record, "decrypt", lambda: {k: dec.decrypt(v) for k, v in outs.items()})
+    slots = step(record, "decode",
+                 lambda: {k: be.decode(p).cpu().numpy() for k, p in phases.items()})
+    return outs, slots, budgets, record, (ct1, ct2, plains[1])
 
 
 def phase_exact(scheme):
     import numpy as np
     import torch
 
-    from seal_tpu_torch import Evaluator, KeyGenerator, interop
+    from seal_tpu_torch import Decryptor, Evaluator, KeyGenerator, interop
     from seal_tpu_torch.config import config
     from seal_tpu_torch.dtypes import u64_numpy
 
     name = scheme.name
     ctx, ctx_cpu = exact_contexts(scheme)
     t = ctx.key_context_data().parms.plain_modulus.value
-    gen = torch.Generator(device=ctx.device).manual_seed(SEED + int(scheme))
     t0 = time.perf_counter()
-    kg = KeyGenerator(ctx, gen)
-    sk, rk = kg.secret_key(), kg.create_relin_keys()
+    kg = KeyGenerator(ctx)
+    sk, pk, rk = kg.secret_key(), kg.create_public_key(), kg.create_relin_keys()
     gk = kg.create_galois_keys(steps=[1, 0])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + int(scheme))
     m1, m2 = (rng.integers(0, t, N, dtype=np.int64) for _ in range(2))
 
-    outs, slots, per_step, (ct1, ct2, plain2) = run_exact_path(ctx, sk, rk, gk, gen, m1, m2)
+    outs, slots, budgets, record, (ct1, ct2, plain2) = run_exact_path(
+        ctx, (sk, pk, rk, gk), m1, m2)
     config.keyswitch_shoup = True
     try:
         ev = Evaluator(ctx)
@@ -724,6 +781,13 @@ def phase_exact(scheme):
                 and tuple(ct.parms_id) == tuple(cpu[op].parms_id)
                 and ct.correction_factor == cpu[op].correction_factor,
                 f"{name} {op}: card output bit-identical to the plain path")
+    dec_cpu = Decryptor(ctx_cpu, interop.secret_key_from_numpy(ctx_cpu, sk.to_numpy()))
+    every_cpu = {"fresh_public": carry(ct1), "fresh_symmetric": carry(ct2), **cpu}
+    budgets_cpu = {k: dec_cpu.invariant_noise_budget(v) for k, v in every_cpu.items()}
+    require(budgets == budgets_cpu, f"{name}: noise budgets on the card equal the CPU's")
+    require(all(b > 0 for b in budgets.values()), f"{name}: every noise budget above 0")
+    dec = Decryptor(ctx, sk)
+    budget_ms = host_ms(lambda: dec.invariant_noise_budget(outs["multiply"]), reps=5)
 
     # every decode against the exact slotwise result mod t
     prod = m1 * m2 % t
@@ -748,15 +812,145 @@ def phase_exact(scheme):
     line = {"phase": "exact", "scheme": name, "n": N, "data_primes": L, "special_primes": 1,
             "t": t, "bsk_primes": len(ctx.first_context_data().rns_tool_host.base_Bsk.base),
             "bit_exact_vs_plain": True, "shoup_bit_identical": True,
-            "decode_exact": True, "launches": per_step, "launches_shoup": launches_shoup,
+            "decode_exact": True, "noise_budgets": budgets, "noise_budgets_card_eq_cpu": True,
+            "noise_budget_ms": budget_ms, "steps": record, "launches_shoup": launches_shoup,
             "ms_per_op": ms, "setup_s": setup_s, "plain_cpu_s": cpu_s}
     emit(line)
     total = {}
-    for counts in list(per_step.values()) + list(launches_shoup.values()):
+    for counts in [r["launches"] for r in record.values()] + list(launches_shoup.values()):
         add_counts(total, counts)
     for kernel in ("ntt_forward", "ntt_inverse", "keyswitch_inner", "keyswitch_inner_shoup"):
         require(total[kernel] > 0, f"{name}: {kernel} launched on its path")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the CKKS round trip from a random seed
+# ---------------------------------------------------------------------------
+
+ROUND_TRIP_SCALE = 2.0 ** 40
+DECODE_BOUND = 1e-4             # |decoded - v1·v2| allowed
+PRNG_RATE_BYTES = 32 << 20
+
+
+def unit_disc(rng, count):
+    """`count` complex values drawn uniformly from the unit disc."""
+    import numpy as np
+
+    return np.sqrt(rng.uniform(0, 1, count)) * np.exp(2j * np.pi * rng.uniform(0, 1, count))
+
+
+def ckks_round_trip(ctx, values, fused, run):
+    """keygen (sk, pk, rk) -> encode both vectors -> encrypt the first with
+    the public key, the second with the secret key -> multiply ->
+    relinearize -> rescale (the fused tail at α > 1) -> decrypt -> decode
+    on ctx, each step through run(name, fn). Returns {name: output} and the
+    objects that the timings reuse."""
+    from seal_tpu_torch import CKKSEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator
+
+    kg = run("keygen_secret", lambda: KeyGenerator(ctx))
+    pk = run("keygen_public", kg.create_public_key)
+    rk = run("keygen_relin", kg.create_relin_keys)
+    encoder = CKKSEncoder(ctx)
+    p1 = run("encode", lambda: encoder.encode(values[0], ROUND_TRIP_SCALE))
+    p2 = run("encode_second", lambda: encoder.encode(values[1], ROUND_TRIP_SCALE))
+    enc = Encryptor(ctx, pk, kg.secret_key())
+    c1 = run("encrypt_public", lambda: enc.encrypt(p1))
+    c2 = run("encrypt_symmetric", lambda: enc.encrypt_symmetric(p2))
+    ev = Evaluator(ctx)
+    out = run("mult_relin_rescale", lambda: run_mode(ev, fused, c1, c2, rk))
+    dec = Decryptor(ctx, kg.secret_key())
+    plain = run("decrypt", lambda: dec.decrypt(out))
+    decoded = run("decode", lambda: encoder.decode(plain, complex_out=True))
+    outputs = {"secret_key": kg.secret_key().to_numpy(), "public_key": pk.to_numpy(),
+               "relin_key": [k.cpu().numpy() for k in rk.keys],
+               "plain_1": p1.to_numpy(), "plain_2": p2.to_numpy(),
+               "ct_public": c1.to_numpy(), "ct_symmetric": c2.to_numpy(),
+               "result": out.to_numpy(), "decrypted": plain.to_numpy(),
+               "decoded": decoded.cpu().numpy()}
+    return outputs, dict(encoder=encoder, enc=enc, dec=dec, p1=p1, out=out)
+
+
+def phase_round_trip(mode, spec):
+    """The CKKS main path a user runs, from parms.set_random_seed alone, on
+    the card and on the CPU: every output bit for bit equal, and the
+    decoded product within DECODE_BOUND of numpy's exact product."""
+    import numpy as np
+    import torch
+
+    ctx, ctx_cpu = contexts(spec, seed_words(SEED + 2))
+    rng = np.random.default_rng(SEED + 2)
+    values = [unit_disc(rng, N // 2) for _ in range(2)]
+    record = {}
+    card, objs = ckks_round_trip(ctx, values, spec["fused"],
+                                 lambda name, fn: step(record, name, fn))
+    t0 = time.perf_counter()
+    cpu, _ = ckks_round_trip(ctx_cpu, values, spec["fused"], lambda name, fn: fn())
+    cpu_s = time.perf_counter() - t0
+    for name, got in card.items():
+        want = cpu[name]
+        same = (all(np.array_equal(a, b) for a, b in zip(got, want)) if isinstance(got, list)
+                else np.array_equal(got.view(np.uint64), want.view(np.uint64)))
+        require(same, f"round trip {mode} {name}: card bit-identical to the CPU path")
+    err = float(np.abs(card["decoded"] - values[0] * values[1]).max())
+    require(err <= DECODE_BOUND, f"round trip {mode}: decoded error {err} within {DECODE_BOUND}")
+
+    encoder, enc, dec = objs["encoder"], objs["enc"], objs["dec"]
+    sync = torch.cuda.synchronize
+    medians = {
+        "encode": host_ms(lambda: (encoder.encode(values[0], ROUND_TRIP_SCALE), sync()), 5),
+        "encrypt_public": host_ms(lambda: (enc.encrypt(objs["p1"]), sync()), 5),
+        "decrypt_decode": host_ms(lambda: (encoder.decode(dec.decrypt(objs["out"])), sync()),
+                                  5)}
+    profiles = {"encode": device_profile(lambda: encoder.encode(values[0], ROUND_TRIP_SCALE)),
+                "encrypt_public": device_profile(lambda: enc.encrypt(objs["p1"])),
+                "decrypt_decode": device_profile(
+                    lambda: encoder.decode(dec.decrypt(objs["out"])))}
+    emit({"phase": "round_trip", "mode": mode, "n": N, "slots": N // 2,
+          "scale_log2": 40, "bit_exact_vs_plain": True, "max_decode_err": err,
+          "decode_bound": DECODE_BOUND, "steps": record, "ms_median": medians,
+          "profile": profiles, "plain_cpu_s": cpu_s})
+    total = {}
+    for r in record.values():
+        add_counts(total, r["launches"])
+    for kernel in ("ntt_forward", "ntt_inverse", "keyswitch_inner"):
+        require(total[kernel] > 0, f"round trip {mode}: {kernel} launched on its path")
+    return total
+
+
+def device_profile(fn):
+    """One call of fn under torch.profiler, after one call untraced: the
+    CUDA kernels and copies it ran, their summed device time, and the span
+    from the first one's start to the last one's end (the device's idle
+    share over that span is 1 - busy / span)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return {"device_events": 0}
+    busy = sum(e.device_time_total for e in events) / 1e3
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    return {"device_events": len(events), "device_busy_ms": busy, "device_span_ms": span}
+
+
+def phase_prng_rate():
+    """The host rate of one bulk draw from a seeded blake2xb stream."""
+    from seal_tpu_torch import randomgen
+
+    prng = randomgen.Blake2xbPRNG(seed_words(SEED))
+    t0 = time.perf_counter()
+    prng.generate(PRNG_RATE_BYTES)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "prng", "bytes": PRNG_RATE_BYTES, "seconds": seconds,
+          "mb_per_s": PRNG_RATE_BYTES / 1e6 / seconds})
 
 
 def main() -> int:
@@ -768,10 +962,14 @@ def main() -> int:
     from seal_tpu_torch import cuda
 
     emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES)})
-    gen = torch.Generator().manual_seed(SEED)
-    kernels, ntt_runs = phase_ntt(gen)
-    kernels.update(phase_keyswitch(gen))
-    kernels.update(phase_keyswitch_shoup(gen))
+    import numpy as np
+
+    meter_prng()
+    phase_prng_rate()
+    rng = np.random.default_rng(SEED)
+    kernels, ntt_runs = phase_ntt(rng)
+    kernels.update(phase_keyswitch(rng))
+    kernels.update(phase_keyswitch_shoup(rng))
 
     total = {name: 0 for name in cuda.launches}
     for mode, spec in MODES.items():
@@ -781,6 +979,8 @@ def main() -> int:
 
     for scheme in (SchemeType.BFV, SchemeType.BGV):
         add_counts(total, phase_exact(scheme))
+    for mode, spec in MODES.items():
+        add_counts(total, phase_round_trip(mode, spec))
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
     phase_ntt_passes(ntt_runs)

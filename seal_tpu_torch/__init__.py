@@ -1,27 +1,33 @@
 """seal_tpu_torch: the PyTorch and CUDA port of seal_tpu, for NVIDIA Hopper.
 
-It ports CKKS (multiply -> relinearize -> rescale, rotations) and the exact
-schemes BFV and BGV (BatchEncoder, BEHZ and BGV multiply, relinearize, mod
-switch, rotate_rows / rotate_columns, plain ops, decryption): parameters and
-context, keys (relinearization and Galois), symmetric encryption,
-decryption, and the Evaluator, with the NTT and both routes of the
-key-switch inner product (128-bit sum, Shoup quotients) as hand-written CUDA
-kernels (csrc/). Contexts live on CUDA by default; pass device="cpu" to run
-the plain PyTorch versions instead.
+It ports CKKS (CKKSEncoder, multiply -> relinearize -> rescale, rotations,
+plain ops) and the exact schemes BFV and BGV (BatchEncoder, BEHZ and BGV
+multiply, relinearize, mod switch, rotate_rows / rotate_columns, plain ops,
+the invariant noise budget): parameters and context, SEAL's seeded byte
+stream (randomgen.py; parms.set_random_seed makes every key and ciphertext
+SEAL's bit for bit), keys (secret, public, relinearization, Galois),
+public-key and symmetric encryption, decryption, and the Evaluator, with the
+NTT and both routes of the key-switch inner product (128-bit sum, Shoup
+quotients) as hand-written CUDA kernels (csrc/). Contexts live on CUDA by
+default; pass device="cpu" to run the plain PyTorch versions instead.
 """
 
+from seal_tpu_torch.ckks import CKKSEncoder
 from seal_tpu_torch.context import SEALContext
 from seal_tpu_torch.decryptor import Decryptor
 from seal_tpu_torch.encoders import BatchEncoder
-from seal_tpu_torch.dtypes import Ciphertext, GaloisKeys, Plaintext, RelinKeys, SecretKey
+from seal_tpu_torch.dtypes import (
+    Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys, SecretKey)
 from seal_tpu_torch.encryption_params import EncryptionParameters, SchemeType
 from seal_tpu_torch.encryptor import Encryptor
 from seal_tpu_torch.evaluator import Evaluator
 from seal_tpu_torch.keygenerator import KeyGenerator
 from seal_tpu_torch.modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
+from seal_tpu_torch.randomgen import PrngType
 
 __all__ = [
-    "BatchEncoder", "Ciphertext", "CoeffModulus", "Decryptor", "EncryptionParameters",
-    "Encryptor", "Evaluator", "GaloisKeys", "KeyGenerator", "Modulus", "PlainModulus",
-    "Plaintext", "RelinKeys", "SEALContext", "SchemeType", "SecLevelType", "SecretKey",
+    "BatchEncoder", "CKKSEncoder", "Ciphertext", "CoeffModulus", "Decryptor",
+    "EncryptionParameters", "Encryptor", "Evaluator", "GaloisKeys", "KeyGenerator",
+    "Modulus", "PlainModulus", "Plaintext", "PrngType", "PublicKey", "RelinKeys",
+    "SEALContext", "SchemeType", "SecLevelType", "SecretKey",
 ]

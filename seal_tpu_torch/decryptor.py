@@ -1,20 +1,24 @@
-"""Decryption: CKKS to the NTT-form phase, BFV and BGV to coefficients mod t.
+"""Decryption: CKKS to the NTT-form phase, BFV and BGV to coefficients mod
+t; the invariant noise budget of BFV and BGV ciphertexts.
 
-The port of seal_tpu/decryptor.py's decrypt (SEAL decryptor.cpp:
-bfv_decrypt :225, ckks_decrypt :265, bgv_decrypt :300, dot_product_ct_sk
-:407). The phase c0 + c1·s + c2·s² + ... is formed in the ciphertext's
-domain; BFV rounds it through the base {t, γ}, BGV converts it exactly to t
-and undoes the correction factor. Every step runs on the context's device,
-and like SEAL it adds no flooding noise. A BFV/BGV result keeps all N
-coefficients (seal_tpu trims the trailing zeros).
+The port of seal_tpu/decryptor.py's decrypt and invariant_noise_budget
+(SEAL decryptor.cpp: bfv_decrypt :225, ckks_decrypt :265, bgv_decrypt :300,
+dot_product_ct_sk :407, invariant_noise_budget :491-560). The phase c0 +
+c1·s + c2·s² + ... is formed in the ciphertext's domain; BFV rounds it
+through the base {t, γ}, BGV converts it exactly to t and undoes the
+correction factor. Every step runs on the context's device, and like SEAL
+it adds no flooding noise. A BFV/BGV result keeps all N coefficients
+(seal_tpu trims the trailing zeros).
 """
 
 from __future__ import annotations
 
+import torch
+
 from seal_tpu_torch.context import SEALContext
 from seal_tpu_torch.dtypes import Ciphertext, Plaintext, SecretKey
 from seal_tpu_torch.encryption_params import SchemeType
-from seal_tpu_torch.ops import modarith, modring, rns
+from seal_tpu_torch.ops import compose, modarith, modring, rns
 from seal_tpu_torch.ops import ntt as ntt_mod
 from seal_tpu_torch.ops.modring import shoup_pair
 from seal_tpu_torch.utils import numth
@@ -66,3 +70,30 @@ class Decryptor:
                                 vals.device)
             vals = modarith.mul_mod_shoup(vals, op, qt, cd.rns_tool.t_mc.q[0])
         return Plaintext(vals)
+
+    def invariant_noise_budget(self, ct: Ciphertext) -> int:
+        """Bits of noise headroom left: log2(Q) minus the bits of the
+        largest centered coefficient of the phase (times t for BFV), minus
+        one, at least 0. The phase is composed mod Q on the device (ops/
+        compose.py); for BFV each residue is first multiplied by t mod q_i,
+        which composes to v·t mod Q."""
+        cd = self.context.get_context_data(ct.parms_id)
+        if cd is None:
+            raise ValueError("encrypted is not valid for encryption parameters")
+        scheme = cd.parms.scheme
+        if scheme not in (SchemeType.BFV, SchemeType.BGV):
+            raise ValueError("unsupported scheme")
+        if ct.is_ntt_form:
+            raise ValueError("encrypted cannot be in NTT form")
+        phase = self._phase(ct, cd)
+        if scheme == SchemeType.BFV:
+            phase = modarith.mul_mod_shoup(phase, *cd.plain_consts["t_mod_q"], cd.mod_consts.q)
+        c = cd.cached("compose", lambda: compose.make_compose_consts(
+            cd.key_moduli(), cd.device))
+        v = compose.compose(phase, c)
+        # |v| centered: Q - v above Q/2
+        above_half, _ = compose.sub_limbs(v, c.half)
+        neg = above_half[-1] >= 0
+        norm = torch.where(neg, compose.sub_limbs(c.Q, v)[0], v)
+        bits = int(compose.bit_length(norm).max())
+        return max(0, cd.total_coeff_modulus_bit_count - bits - 1)

@@ -1,4 +1,4 @@
-"""Scheme data types: Plaintext, Ciphertext and keys.
+"""Scheme data types: Plaintext, Ciphertext, PublicKey and keys.
 
 The port of seal_tpu/dtypes.py. Each object holds one int64 tensor whose
 words are the uint64 residues (seal_tpu holds a (lo, hi) pair of uint32
@@ -74,6 +74,8 @@ class Ciphertext:
         self.is_ntt_form = is_ntt_form
         self.scale = scale
         self.correction_factor = correction_factor
+        # (prng type, seed) of c1 when the encryption was asked to keep it
+        self.seed_info = None
 
     @property
     def size(self) -> int:
@@ -121,6 +123,21 @@ class SecretKey:
         return u64_numpy(self.data)
 
 
+class PublicKey:
+    """A symmetric encryption of zero at the key level, in NTT form: data is
+    a Ciphertext [2, L_key, N] (SEAL publickey.h)."""
+
+    def __init__(self, data: Ciphertext | None = None):
+        self.data = data
+
+    @property
+    def parms_id(self) -> ParmsId:
+        return self.data.parms_id
+
+    def to_numpy(self) -> np.ndarray:
+        return self.data.to_numpy()
+
+
 class KSwitchKeys:
     """keys[target] = [d, 2, L_key, N]: per decomposition digit, a size-2
     NTT-form encryption over the key-level tower (SEAL kswitchkeys.h)."""
@@ -128,6 +145,8 @@ class KSwitchKeys:
     def __init__(self, keys=None, parms_id: ParmsId = PARMS_ID_ZERO):
         self.keys: list = list(keys or [])
         self.parms_id = parms_id
+        # per key, each digit's (prng type, seed) when keygen kept them
+        self.seeds = None
 
     @property
     def size(self) -> int:

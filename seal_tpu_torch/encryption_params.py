@@ -1,11 +1,12 @@
 """Encryption parameters with SEAL-compatible parms_id hashing.
 
-The port's own copy of seal_tpu/encryption_params.py without the PRNG
-selection (the port draws from an explicit torch.Generator). The parms_id is
-the blake2b-256 hash over the little-endian uint64 words [scheme,
+The port's own copy of seal_tpu/encryption_params.py. The parms_id is the
+blake2b-256 hash over the little-endian uint64 words [scheme,
 poly_modulus_degree, coeff_modulus..., plain_modulus]
 (SEAL encryptionparams.cpp:124-158), so a seal_tpu or SEAL parms_id carries
-over unchanged.
+over unchanged. The random seed and the PRNG type choose the byte stream
+that keys and encryptions draw from (randomgen.py); like SEAL's PRNG
+factory, neither is part of the parms_id.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import struct
 
 from seal_tpu_torch.modulus import Modulus
+from seal_tpu_torch.randomgen import PrngType
 
 ParmsId = tuple  # 4-tuple of uint64
 
@@ -46,6 +48,8 @@ class EncryptionParameters:
         self._coeff_modulus: list[Modulus] = []
         self._plain_modulus = Modulus(0)
         self._special_modulus_size = 1
+        self._random_seed = None     # 8 u64 words, or None for a fresh seed per stream
+        self._prng_type = None       # None: blake2xb
         self._compute_parms_id()
 
     def set_poly_modulus_degree(self, degree: int):
@@ -70,6 +74,19 @@ class EncryptionParameters:
             raise ValueError("plain_modulus is not supported for this scheme")
         self._plain_modulus = Modulus(value)
         self._compute_parms_id()
+
+    def set_random_seed(self, seed):
+        """Fix the seed (8 u64 words) of every stream that keys and
+        encryptions draw from: SEAL's set_random_generator with a seeded
+        factory, so each stream replays the same bytes. None or () goes
+        back to a fresh seed per stream."""
+        self._random_seed = (tuple(int(s) & ((1 << 64) - 1) for s in seed)
+                             if seed else None)
+
+    def set_prng_type(self, prng_type):
+        """blake2xb (the default) or shake256 (SEAL's Shake256PRNGFactory);
+        None goes back to the default."""
+        self._prng_type = PrngType(prng_type) if prng_type is not None else None
 
     def set_special_modulus_size(self, alpha: int):
         """Number of special (key-switching-only) primes at the tail of
@@ -102,6 +119,14 @@ class EncryptionParameters:
         return self._special_modulus_size
 
     @property
+    def random_seed(self):
+        return self._random_seed
+
+    @property
+    def prng_type(self) -> PrngType:
+        return PrngType.BLAKE2XB if self._prng_type is None else self._prng_type
+
+    @property
     def parms_id(self) -> ParmsId:
         return self._parms_id
 
@@ -119,6 +144,8 @@ class EncryptionParameters:
         p._coeff_modulus = list(self._coeff_modulus)
         p._plain_modulus = self._plain_modulus
         p._special_modulus_size = self._special_modulus_size
+        p._random_seed = self._random_seed
+        p._prng_type = self._prng_type
         p._compute_parms_id()
         return p
 

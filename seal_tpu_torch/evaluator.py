@@ -470,7 +470,7 @@ class Evaluator:
         return Ciphertext(data, tuple(next_cd.parms_id), ct.is_ntt_form,
                           ct.scale / cd.key_moduli()[-1], ct.correction_factor)
 
-    # -- plaintext operations (BFV, BGV) --------------------------------------------
+    # -- plaintext operations ----------------------------------------------------
 
     def add_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
         return self._add_sub_plain(ct, plain, sub=False)
@@ -479,31 +479,51 @@ class Evaluator:
         return self._add_sub_plain(ct, plain, sub=True)
 
     def _add_sub_plain(self, ct: Ciphertext, plain: Plaintext, sub: bool) -> Ciphertext:
-        """c0 ± the plaintext: BFV adds its Δ-scaled embedding, BGV the
-        coefficients times the correction factor (evaluator.cpp:1692-1790)."""
+        """c0 ± the plaintext: CKKS adds its NTT-form rows at the same level
+        and scale, BFV its Δ-scaled embedding, BGV the coefficients times
+        the correction factor (evaluator.cpp:1692-1790)."""
         cd = self._cd(ct)
-        self._require_plain_ops(cd)
-        m = plain_coeffs(plain, cd)
-        if cd.parms.scheme == SchemeType.BFV:
-            rows = scaled_plain_rows(m, cd)
+        if cd.parms.scheme == SchemeType.CKKS:
+            if not plain.is_ntt_form or plain.data is None:
+                raise ValueError("plain must be in NTT form")
+            if tuple(plain.parms_id) != tuple(ct.parms_id):
+                raise ValueError("encrypted_ntt and plain_ntt parameter mismatch")
+            if not _scales_close(ct.scale, plain.scale):
+                raise ValueError("scale mismatch")
+            rows = plain.data
         else:
-            if ct.correction_factor != 1:
-                t_mc = cd.plain_consts["t_mc"]
-                t = cd.parms.plain_modulus.value
-                m = modarith.mul_mod_shoup(m, *shoup_pair([ct.correction_factor % t], [t],
-                                                          m.device), t_mc.q[0])
-            rows = lifted_plain_rows(m, cd)
+            m = plain_coeffs(plain, cd)
+            if cd.parms.scheme == SchemeType.BFV:
+                rows = scaled_plain_rows(m, cd)
+            else:
+                if ct.correction_factor != 1:
+                    t_mc = cd.plain_consts["t_mc"]
+                    t = cd.parms.plain_modulus.value
+                    m = modarith.mul_mod_shoup(
+                        m, *shoup_pair([ct.correction_factor % t], [t], m.device), t_mc.q[0])
+                rows = lifted_plain_rows(m, cd)
         op = modring.sub_poly if sub else modring.add_poly
         out = ct.copy()
         out.data = torch.cat([op(ct.data[:1], rows, cd.mod_consts), ct.data[1:]])
         return out
 
     def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
-        """Each polynomial times the plaintext lifted to q (its upper half
-        of t to the negatives), through the NTT (multiply_plain_normal,
-        evaluator.cpp:1858-1992)."""
+        """Each polynomial times the plaintext. Both in NTT form (CKKS, or
+        BFV/BGV after transform_to_ntt): a dyadic product at the plaintext's
+        level, the scales multiplied. Both in coefficient form (BFV, BGV):
+        the plaintext lifted to q (its upper half of t to the negatives),
+        through the NTT (multiply_plain_normal, evaluator.cpp:1858-1992)."""
         cd = self._cd(ct)
-        self._require_plain_ops(cd)
+        if ct.is_ntt_form and plain.is_ntt_form:
+            if tuple(plain.parms_id) != tuple(ct.parms_id):
+                raise ValueError("encrypted_ntt and plain_ntt parameter mismatch")
+            out = ct.copy()
+            out.data = modring.dyadic_product(ct.data, plain.data, cd.mod_consts)
+            out.scale = ct.scale * plain.scale
+            _check_scale(out.scale, cd)
+            return out
+        if ct.is_ntt_form or plain.is_ntt_form:
+            raise ValueError("NTT form mismatch")
         m = plain_coeffs(plain, cd)
         if not bool(m.any()):
             raise ValueError("plain cannot be zero")
@@ -514,10 +534,35 @@ class Evaluator:
             ntt_mod.ntt_forward(ct.data, tables), plain_ntt, cd.mod_consts), tables)
         return out
 
-    @staticmethod
-    def _require_plain_ops(cd: ContextData):
-        if cd.parms.scheme == SchemeType.CKKS:
-            raise NotImplementedError("the CKKS plaintext operations are not ported yet")
+    # -- NTT transforms -----------------------------------------------------------
+
+    def transform_to_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if ct.is_ntt_form:
+            raise ValueError("encrypted is already in NTT form")
+        out = ct.copy()
+        out.data = ntt_mod.ntt_forward(ct.data, self._cd(ct).ntt_tables)
+        out.is_ntt_form = True
+        return out
+
+    def transform_from_ntt(self, ct: Ciphertext) -> Ciphertext:
+        if not ct.is_ntt_form:
+            raise ValueError("encrypted is not in NTT form")
+        out = ct.copy()
+        out.data = ntt_mod.ntt_inverse(ct.data, self._cd(ct).ntt_tables)
+        out.is_ntt_form = False
+        return out
+
+    def transform_plain_to_ntt(self, plain: Plaintext, parms_id) -> Plaintext:
+        """A BFV/BGV coefficient-form plaintext lifted to the level of
+        parms_id (its upper half of t to the negatives) and transformed."""
+        if plain.is_ntt_form:
+            raise ValueError("plain is already in NTT form")
+        cd = self.context.get_context_data(parms_id)
+        if cd is None:
+            raise ValueError("parms_id is not valid for the current context")
+        rows = plain_to_rns_rows(plain_coeffs(plain, cd), cd)
+        return Plaintext(ntt_mod.ntt_forward(rows, cd.ntt_tables), tuple(parms_id),
+                         plain.scale)
 
     # -- Galois automorphisms and rotations ------------------------------------------
 

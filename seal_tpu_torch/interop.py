@@ -5,8 +5,9 @@ A seal_tpu object exports to exactly these arrays (Ciphertext.to_numpy(),
 a BFV/BGV Plaintext's data, dtypes.to_host of RelinKeys.keys[i], of
 GaloisKeys.keys[i] and of a SecretKey's data), as do
 SEAL's own vectors; this module reads them without
-importing seal_tpu. The port's samplers are not SEAL's byte stream, so
-bit-exact comparisons start from state carried across this way.
+importing seal_tpu. The port draws from SEAL's own byte stream, so from
+the same random seed it makes the same keys and ciphertexts itself; this
+module carries state that was made elsewhere.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from seal_tpu_torch.context import SEALContext
-from seal_tpu_torch.dtypes import Ciphertext, GaloisKeys, Plaintext, RelinKeys, SecretKey
+from seal_tpu_torch.dtypes import (
+    Ciphertext, GaloisKeys, Plaintext, PublicKey, RelinKeys, SecretKey)
 
 
 def u64_to_tensor(arr, context: SEALContext) -> torch.Tensor:
@@ -44,6 +46,11 @@ def plaintext_from_numpy(context: SEALContext, data) -> Plaintext:
 def secret_key_from_numpy(context: SEALContext, data) -> SecretKey:
     """data: uint64 [L_key, N], the NTT-form secret key at the key level."""
     return SecretKey(u64_to_tensor(data, context), tuple(context.key_parms_id))
+
+
+def public_key_from_numpy(context: SEALContext, data) -> PublicKey:
+    """data: uint64 [2, L_key, N], the NTT-form public key."""
+    return PublicKey(ciphertext_from_numpy(context, data, context.key_parms_id, 1.0))
 
 
 def relin_keys_from_numpy(context: SEALContext, keys) -> RelinKeys:

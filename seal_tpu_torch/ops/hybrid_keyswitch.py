@@ -173,14 +173,20 @@ def diag_skip_ntt(rows, target, lvl_tables: ntt_mod.NTTTables,
 
 
 def mod_down(rows, c: dict, lvl_tables: ntt_mod.NTTTables,
-             special_tables: ntt_mod.NTTTables, mc: ModConsts, ntt_out: bool = True):
-    """Divide NTT-form key-level rows [..., L+α, N] by P = Π specials;
-    returns [..., L, N] in NTT form (ntt_out, CKKS) or in coefficient form
-    (BFV, BGV): the tails of SEAL evaluator.cpp:2572-2676, one fast base
-    conversion in place of the single-row lift. c = tail_consts(...) on the
-    device; it holds "t_mc" for BGV's exact division."""
+             special_tables: ntt_mod.NTTTables, mc: ModConsts, ntt_out: bool = True,
+             ntt_in: bool = True):
+    """Divide key-level rows [..., L+α, N] by P = Π specials; returns
+    [..., L, N] in NTT form (ntt_out, CKKS) or in coefficient form (BFV,
+    BGV): the tails of SEAL evaluator.cpp:2572-2676, one fast base
+    conversion in place of the single-row lift. The rows are in NTT form
+    (a key switch's inner product) or, without ntt_in, in coefficient form
+    below q (a BFV/BGV encryption of zero on its way to the first level).
+    c = tail_consts(...) on the device; it holds "t_mc" for BGV's exact
+    division."""
     L = mc.count
-    spec = ntt_mod.ntt_inverse(rows[..., L:, :], special_tables)   # < p_k
+    spec = rows[..., L:, :]
+    if ntt_in:
+        spec = ntt_mod.ntt_inverse(spec, special_tables)           # < p_k
     p_mc = c["p_mc"]
     body = rows[..., :L, :]
 
@@ -198,14 +204,16 @@ def mod_down(rows, c: dict, lvl_tables: ntt_mod.NTTTables,
         k = modarith.mul_mod_shoup(k, *c["p_inv_t"], t_mc.q)
         delta = modarith.mul_mod(modarith.barrett_reduce_64(k, mc.q, mc.ratio1), c["p_q"],
                                  mc.q, mc.ratio0, mc.ratio1)
-        summed = ntt_mod.ntt_inverse(body, lvl_tables) + (mc.two_q - delta - r)
+        if ntt_in:
+            body = ntt_mod.ntt_inverse(body, lvl_tables)
+        summed = body + (mc.two_q - delta - r)
         return modarith.mul_mod_shoup(summed, *c["p_inv_q"], mc.q)
     y = modarith.add_mod(spec, c["half_p"], p_mc.q)
     w = times_inv_hat(y)                                             # [.., α, N]
     r = shoup_dot(w, *c["hat_p_q"], mc) + c["neg_half_q"]            # < 2q
     if ntt_out:
         r = ntt_mod.ntt_forward(r, lvl_tables, lazy=True)            # < 4q
-    else:
+    elif ntt_in:
         body = ntt_mod.ntt_inverse(body, lvl_tables, lazy=True)      # < 2q
     summed = body + (mc.q << 2) - r
     return modarith.mul_mod_shoup(summed, *c["p_inv_q"], mc.q)

@@ -6,10 +6,11 @@
     relinearize, mod switch, add_plain, multiply_plain, decryptions and
     BatchEncoder must give the file's words and strings. The rotation vectors
     of bgv_galois_n64.json (bfv_rot3, bfv_galois9) need Galois keys and a
-    ciphertext that the file lacks: seal_tpu's seeded KeyGenerator,
-    Encryptor and BatchEncoder (host code, SEAL's bytes) make them, as in
-    tests/test_bgv_galois_bitexact.py. No seal_tpu Evaluator runs.
-(c) The port's own keys at n = 1024, α = 1 and 2: encode, encrypt,
+    ciphertext that the file lacks: the port makes them from the file's
+    seed, as tests/test_bgv_galois_bitexact.py does with seal_tpu. No
+    seal_tpu Evaluator runs.
+(c) The port's own keys at n = 1024, α = 1 and 2: encode, encrypt (the
+    first input with the public key, the second with the secret key),
     multiply, relinearize, mod switch, rotate_rows / rotate_columns, the
     plain ops and square, decrypt and decode to the exact slotwise result.
     test_torch_bgv.py runs the same pipeline for BGV.
@@ -20,11 +21,9 @@ import pathlib
 
 import numpy as np
 import pytest
-import torch
 
 import seal_tpu
 import seal_tpu_torch as st
-from seal_tpu.dtypes import to_host
 from seal_tpu_torch import interop
 
 VECTORS = pathlib.Path(__file__).parent / "vectors"
@@ -33,12 +32,13 @@ VG = json.loads((VECTORS / "bgv_galois_n64.json").read_text())
 SEED = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
-def port_context(scheme, n, bits, t, alpha=1):
+def port_context(scheme, n, bits, t, alpha=1, seed=None):
     parms = st.EncryptionParameters(scheme)
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
     parms.set_plain_modulus(t)
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed(seed)
     return st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
 
 
@@ -157,17 +157,12 @@ def test_golden_square_and_batch_encode(golden):
 
 def test_golden_rotations():
     """bfv_rot3 (rotate_rows by 3: Galois element 27) and bfv_galois9, on
-    seal_tpu's seeded Galois keys and public-key ciphertext."""
-    sctx = seal_tpu_context(seal_tpu.SchemeType.BFV)
-    kg = seal_tpu.KeyGenerator(sctx)
+    the port's Galois keys and public-key ciphertext from the file's seed."""
+    ctx = port_context(st.SchemeType.BFV, 64, [40, 40, 40], 257, seed=SEED)
+    kg = st.KeyGenerator(ctx)
     pk = kg.create_public_key()
-    gk = kg.create_galois_keys([3, 9, 27, 127])
-    sct = seal_tpu.Encryptor(sctx, pk).encrypt(
-        seal_tpu.BatchEncoder(sctx).encode(list(range(64))))
-    ctx = port_context(st.SchemeType.BFV, 64, [40, 40, 40], 257)
-    keys = interop.galois_keys_from_numpy(
-        ctx, [None if k is None else to_host(k) for k in gk.keys])
-    ct = interop.ciphertext_from_numpy(ctx, sct.to_numpy(), sct.parms_id, 1.0, False)
+    keys = kg.create_galois_keys([3, 9, 27, 127])
+    ct = st.Encryptor(ctx, pk).encrypt(st.BatchEncoder(ctx).encode(list(range(64))))
     ev = st.Evaluator(ctx)
     assert_ct(VG, "bfv_rot3", ev.rotate_rows(ct, 3, keys))
     assert_ct(VG, "bfv_galois9", ev.apply_galois(ct, 9, keys))
@@ -187,16 +182,15 @@ def assert_own_keys_pipeline(scheme, alpha):
     multiply_plain, add_plain, sub and negate: every decode equals the exact
     slotwise result mod t."""
     t = st.PlainModulus.batching(N_OWN, 20).value
-    ctx = port_context(scheme, N_OWN, OWN_BITS[alpha], t, alpha)
-    gen = torch.Generator().manual_seed(10 * alpha + int(scheme))
-    kg = st.KeyGenerator(ctx, gen)
+    ctx = port_context(scheme, N_OWN, OWN_BITS[alpha], t, alpha, seed=(alpha, int(scheme)) * 4)
+    kg = st.KeyGenerator(ctx)
     rk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1, 0])
-    enc, dec, ev = st.Encryptor(ctx, kg.secret_key(), gen), st.Decryptor(ctx, kg.secret_key()), \
-        st.Evaluator(ctx)
+    enc = st.Encryptor(ctx, kg.create_public_key(), kg.secret_key())
+    dec, ev = st.Decryptor(ctx, kg.secret_key()), st.Evaluator(ctx)
     be = st.BatchEncoder(ctx)
     rng = np.random.default_rng(alpha)
     m1, m2 = (rng.integers(0, t, N_OWN, dtype=np.int64) for _ in range(2))
-    ct1, ct2 = enc.encrypt_symmetric(be.encode(m1)), enc.encrypt_symmetric(be.encode(m2))
+    ct1, ct2 = enc.encrypt(be.encode(m1)), enc.encrypt_symmetric(be.encode(m2))
 
     def decoded(ct):
         return be.decode(dec.decrypt(ct)).numpy()

@@ -3,10 +3,9 @@
 (a) SEAL's vectors at n = 64 (tests/vectors/bgv_galois_n64.json, the inputs
     of tests/test_bgv_galois_bitexact.py): multiply, relinearize, mod switch,
     add and the chain down to the last level, with their correction factors
-    and decryptions. The file holds the secret key and the first ciphertext;
-    the relinearization key and the second ciphertext come from seal_tpu's
-    seeded KeyGenerator and Encryptor (host code, SEAL's bytes). No seal_tpu
-    Evaluator runs.
+    and decryptions. The port makes the keys and both public-key
+    ciphertexts from the file's seed; the file's secret key and first
+    ciphertext must come out. No seal_tpu Evaluator runs.
 (b) The correction-factor balancing of add/sub against seal_tpu's host
     function, and the port's own keys at n = 1024, α = 1 and 2 (the
     pipeline of test_torch_bfv.py), with a sum of ciphertexts whose
@@ -20,31 +19,21 @@ import pytest
 
 import seal_tpu
 import seal_tpu_torch as st
-from seal_tpu.dtypes import to_host
-from seal_tpu_torch import interop
-from tests.test_torch_bfv import VG, assert_ct, assert_own_keys_pipeline, port_context, \
-    ref, seal_tpu_context
+from tests.test_torch_bfv import SEED, VG, assert_ct, assert_own_keys_pipeline, port_context, \
+    ref
 
 
 @pytest.fixture(scope="module")
 def chain():
-    sctx = seal_tpu_context(seal_tpu.SchemeType.BGV)
-    kg = seal_tpu.KeyGenerator(sctx)
-    enc = seal_tpu.Encryptor(sctx, kg.create_public_key())
-    srk = kg.create_relin_keys()
-    sc1 = enc.encrypt(seal_tpu.Plaintext.from_hex_string("5x^3 + 2x^1 + 3"))
-    sc2 = enc.encrypt(seal_tpu.Plaintext.from_hex_string("1x^2 + 4"))
-    ctx = port_context(st.SchemeType.BGV, 64, [40, 40, 40], 257)
-    assert tuple(ctx.first_parms_id) == tuple(sctx.first_parms_id)
-    sk = interop.secret_key_from_numpy(ctx, ref(VG, "bgv_secret_key", 3))
-    rk = interop.relin_keys_from_numpy(ctx, [to_host(k) for k in srk.keys])
-
-    def carry(c):
-        return interop.ciphertext_from_numpy(ctx, c.to_numpy(), c.parms_id, 1.0, False,
-                                             c.correction_factor)
-
-    return dict(ctx=ctx, rk=rk, ev=st.Evaluator(ctx), dec=st.Decryptor(ctx, sk),
-                c1=carry(sc1), c2=carry(sc2))
+    """The port's keys and public-key ciphertexts from the file's seed."""
+    ctx = port_context(st.SchemeType.BGV, 64, [40, 40, 40], 257, seed=SEED)
+    kg = st.KeyGenerator(ctx)
+    np.testing.assert_array_equal(kg.secret_key().to_numpy(), ref(VG, "bgv_secret_key", 3))
+    enc = st.Encryptor(ctx, kg.create_public_key())
+    c1 = enc.encrypt(st.Plaintext.from_hex_string("5x^3 + 2x^1 + 3", device="cpu"))
+    c2 = enc.encrypt(st.Plaintext.from_hex_string("1x^2 + 4", device="cpu"))
+    return dict(ctx=ctx, rk=kg.create_relin_keys(), ev=st.Evaluator(ctx),
+                dec=st.Decryptor(ctx, kg.secret_key()), c1=c1, c2=c2)
 
 
 def test_golden_chain(chain):

@@ -2,12 +2,14 @@
 
 (a) α = 1 against SEAL's own golden vectors (tests/vectors/ckks_n64.json):
     multiply, relinearize, rescale and decrypt bit for bit.
-(b) α = 1 at n = 1024 against seal_tpu.Evaluator, bit for bit, with keys
-    and ciphertexts made by seal_tpu and carried across (interop); α = 2 is
-    in test_torch_hybrid_keyswitch.py, a file of its own so that the two
-    slow JAX compiles land on different test workers.
-(c) The port's own keygen, symmetric encryption and decryption, alone and
-    around the pipeline, within a stated noise bound.
+(b) α = 1 at n = 1024 against seal_tpu.Evaluator, bit for bit: from one
+    random seed seal_tpu and the port each make the relinearization key,
+    the public key, the encodes and the public-key ciphertexts, which must
+    agree bit for bit before the pipeline runs; α = 2 is in
+    test_torch_hybrid_keyswitch.py, a file of its own so that the two slow
+    JAX compiles land on different test workers.
+(c) The port's own keygen, symmetric encryption and decryption from a
+    random seed, alone and around the pipeline, within a stated noise bound.
 """
 
 import json
@@ -38,11 +40,12 @@ def _assert_ct(ct, name):
                                       err_msg=f"{name}_c{j}")
 
 
-def _port_context(n, bits, alpha=1, sec_level=st.SecLevelType.NONE):
+def _port_context(n, bits, alpha=1, sec_level=st.SecLevelType.NONE, seed=None):
     parms = st.EncryptionParameters(st.SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed(seed)
     return st.SEALContext(parms, sec_level=sec_level, device="cpu")
 
 
@@ -112,25 +115,54 @@ def test_golden_square_equals_multiply(golden):
 
 # -- (b) against seal_tpu at n = 1024 ------------------------------------------
 
+def seeded_state_matches_seal_tpu(sctx, ctx, values, scale, galois_steps=None):
+    """seal_tpu and the port each make the relinearization key (and Galois
+    keys of `galois_steps`), the public key and a public-key encryption of
+    each vector of `values` from the parameters' random seed; every key and
+    ciphertext must be bit-identical. Returns (seal_tpu's, the port's)
+    (relin keys, Galois keys, ciphertexts)."""
+    skg, kg = seal_tpu.KeyGenerator(sctx), st.KeyGenerator(ctx)
+    out = []
+    for keygen, encoder_cls, encryptor_cls in (
+            (skg, seal_tpu.CKKSEncoder, seal_tpu.Encryptor),
+            (kg, st.CKKSEncoder, st.Encryptor)):
+        rk = keygen.create_relin_keys()
+        gk = None if galois_steps is None else keygen.create_galois_keys(steps=galois_steps)
+        enc, encoder = encryptor_cls(ctx if keygen is kg else sctx,
+                                     keygen.create_public_key()), \
+            encoder_cls(ctx if keygen is kg else sctx)
+        out.append((rk, gk, [enc.encrypt(encoder.encode(v, scale)) for v in values]))
+    (srk, sgk, scts), (rk, gk, cts) = out
+    np.testing.assert_array_equal(rk.keys[0].numpy().view(np.uint64), to_host(srk.keys[0]))
+    if gk is not None:
+        for k, sk in zip(gk.keys, sgk.keys):
+            assert (k is None) == (sk is None)
+            if k is not None:
+                np.testing.assert_array_equal(k.numpy().view(np.uint64), to_host(sk))
+    for ct, sct in zip(cts, scts):
+        np.testing.assert_array_equal(ct.to_numpy(), sct.to_numpy())
+        assert tuple(ct.parms_id) == tuple(sct.parms_id) and ct.scale == sct.scale
+    return (srk, sgk, scts), (rk, gk, cts)
+
+
 def assert_pipeline_matches_seal_tpu(alpha, bits, n=1024):
-    """seal_tpu makes the keys and ciphertexts and runs multiply,
-    relinearize, rescale_to_next and relinearize_rescale (under one jax.jit,
-    which compiles once instead of op by op); the port repeats them on the
-    carried-across state and must give the same bits and metadata."""
+    """seal_tpu runs multiply, relinearize, rescale_to_next and
+    relinearize_rescale (under one jax.jit, which compiles once instead of
+    op by op); the port repeats them on its own keys and ciphertexts from
+    the same seed and must give the same bits and metadata."""
+    seed = (7, 1, 2, 3, 4, 5, 6, alpha)
     sp = seal_tpu.EncryptionParameters(seal_tpu.SchemeType.CKKS)
     sp.set_poly_modulus_degree(n)
     sp.set_coeff_modulus(seal_tpu.CoeffModulus.create(n, bits))
     sp.set_special_modulus_size(alpha)
-    sp.set_random_seed((7, 1, 2, 3, 4, 5, 6, alpha))
+    sp.set_random_seed(seed)
     sctx = seal_tpu.SEALContext(sp, sec_level=seal_tpu.SecLevelType.NONE)
-    kg = seal_tpu.KeyGenerator(sctx)
-    srk = kg.create_relin_keys()
-    enc = seal_tpu.Encryptor(sctx, kg.create_public_key())
-    encoder = seal_tpu.CKKSEncoder(sctx)
+    ctx = _port_context(n, bits, alpha, seed=seed)
+    assert tuple(ctx.first_parms_id) == tuple(sctx.first_parms_id)
     rng = np.random.default_rng(alpha * 10 + len(bits))
-    scale = 2.0 ** 30
-    sct1 = enc.encrypt(encoder.encode(rng.uniform(-1, 1, encoder.slot_count), scale))
-    sct2 = enc.encrypt(encoder.encode(rng.uniform(-1, 1, encoder.slot_count), scale))
+    values = [rng.uniform(-1, 1, n // 2) for _ in range(2)]
+    (srk, _, (sct1, sct2)), (rk, _, (ct1, ct2)) = seeded_state_matches_seal_tpu(
+        sctx, ctx, values, 2.0 ** 30)
     sev = seal_tpu.Evaluator(sctx)
 
     def pipeline(ev, rk, a, b):
@@ -141,16 +173,7 @@ def assert_pipeline_matches_seal_tpu(alpha, bits, n=1024):
                 "relinearize_rescale": ev.relinearize_rescale(mul, rk)}
 
     want = jax.jit(lambda a, b: pipeline(sev, srk, a, b))(sct1, sct2)
-
-    ctx = _port_context(n, bits, alpha)
-    assert tuple(ctx.first_parms_id) == tuple(sctx.first_parms_id)
-    rk = interop.relin_keys_from_numpy(ctx, [to_host(k) for k in srk.keys])
-
-    def carry(ct):
-        return interop.ciphertext_from_numpy(ctx, ct.to_numpy(), ct.parms_id, ct.scale,
-                                             ct.is_ntt_form)
-
-    got = pipeline(st.Evaluator(ctx), rk, carry(sct1), carry(sct2))
+    got = pipeline(st.Evaluator(ctx), rk, ct1, ct2)
     for op, ct in got.items():
         np.testing.assert_array_equal(ct.to_numpy(), want[op].to_numpy(), err_msg=op)
         assert tuple(ct.parms_id) == tuple(want[op].parms_id), op
@@ -169,10 +192,10 @@ FRESH_NOISE_BOUND = 21              # phase - m = -e, one CBD sample: |e| <= 21
 PIPELINE_NOISE_BOUND = 1 << 12      # after multiply, relinearize, rescale
 
 
-def _sparse(gen, count=4, bits=30):
-    idx = torch.randperm(N_RT, generator=gen)[:count].tolist()
-    mag = torch.randint(1 << (bits - 1), 1 << bits, (count,), generator=gen).tolist()
-    sign = torch.randint(0, 2, (count,), generator=gen).tolist()
+def _sparse(rng, count=4, bits=30):
+    idx = rng.permutation(N_RT)[:count].tolist()
+    mag = rng.integers(1 << (bits - 1), 1 << bits, count).tolist()
+    sign = rng.integers(0, 2, count).tolist()
     return {i: (m if s else -m) for i, m, s in zip(idx, mag, sign)}
 
 
@@ -195,16 +218,16 @@ def _centered_row0(ctx, plain):
 def test_own_keys_round_trip_and_pipeline(alpha, bits, level):
     """At the second level the key's rows are gathered to the level's
     extended tower before the inner product."""
-    ctx = _port_context(N_RT, bits, alpha)
-    gen = torch.Generator().manual_seed(alpha)
-    kg = st.KeyGenerator(ctx, gen)
+    ctx = _port_context(N_RT, bits, alpha, seed=(alpha,) * 8)
+    kg = st.KeyGenerator(ctx)
     sk, rk = kg.secret_key(), kg.create_relin_keys()
     assert rk.keys[0].shape == (-(-4 // alpha), 2, 4 + alpha, N_RT)
-    enc, dec, ev = st.Encryptor(ctx, sk, gen), st.Decryptor(ctx, sk), st.Evaluator(ctx)
+    enc, dec, ev = st.Encryptor(ctx, sk), st.Decryptor(ctx, sk), st.Evaluator(ctx)
     cd = ctx.first_context_data()
     for _ in range(level):
         cd = cd.next_context_data
-    m1, m2 = _sparse(gen), _sparse(gen)
+    rng = np.random.default_rng(alpha)
+    m1, m2 = _sparse(rng), _sparse(rng)
     ct1 = enc.encrypt_symmetric(_encode(cd, m1, 2.0 ** 30))
     ct2 = enc.encrypt_symmetric(_encode(cd, m2, 2.0 ** 30))
 

@@ -5,7 +5,7 @@
     automorphisms applied, bit for bit.
 (b) SEAL's own golden vectors (tests/vectors/ckks_n64.json): rotate_vector
     by 1 and complex_conjugate of the file's ciphertext, with Galois keys
-    made by seal_tpu from the file's seed and carried across, bit for bit.
+    that the port makes from the file's seed, bit for bit.
 (c) The port's own create_galois_keys at n = 1024: rotations and the
     conjugation of its own sparse ciphertext decrypt to the exact
     automorphism of the plaintext within a stated noise bound.
@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import seal_tpu
 import seal_tpu_torch as st
 from seal_tpu.dtypes import to_device, to_host
 from seal_tpu.ops import modring as jmodring
@@ -96,24 +95,14 @@ def _ref(name, L, n=64):
 
 
 def test_golden_rotate_and_conjugate():
-    """seal_tpu draws pk, rk, then the Galois keys of elements 3 and 2n-1
-    from the file's seed, as tests/test_ckks_bitexact.py does."""
-    sp = seal_tpu.EncryptionParameters(seal_tpu.SchemeType.CKKS)
-    sp.set_poly_modulus_degree(64)
-    sp.set_coeff_modulus(seal_tpu.CoeffModulus.create(64, [40, 40, 40, 40]))
-    sp.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
-    sctx = seal_tpu.SEALContext(sp, sec_level=seal_tpu.SecLevelType.NONE)
-    kg = seal_tpu.KeyGenerator(sctx)
-    kg.create_public_key()
-    kg.create_relin_keys()
-    sgk = kg.create_galois_keys([3, 127])
-
+    """The port draws the Galois keys of elements 3 and 2n-1 from the
+    file's seed, as tests/test_ckks_bitexact.py does with seal_tpu."""
     parms = st.EncryptionParameters(st.SchemeType.CKKS)
     parms.set_poly_modulus_degree(64)
     parms.set_coeff_modulus(st.CoeffModulus.create(64, [40, 40, 40, 40]))
+    parms.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gk = interop.galois_keys_from_numpy(
-        ctx, [None if k is None else to_host(k) for k in sgk.keys])
+    gk = st.KeyGenerator(ctx).create_galois_keys([3, 127])
     assert len(gk.keys) == 64 and gk.has_key(3) and gk.has_key(127) and not gk.has_key(5)
     ct1 = interop.ciphertext_from_numpy(
         ctx, np.stack([_ref(f"ct1_c{j}", 3) for j in range(2)]), ctx.first_parms_id,
@@ -150,9 +139,9 @@ def test_own_galois_keys_decrypt_to_the_automorphism(alpha, bits):
     parms.set_poly_modulus_degree(N_RT)
     parms.set_coeff_modulus(st.CoeffModulus.create(N_RT, bits))
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((10 + alpha,) * 8)
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gen = torch.Generator().manual_seed(10 + alpha)
-    kg = st.KeyGenerator(ctx, gen)
+    kg = st.KeyGenerator(ctx)
     steps = [1, 2, 8, 0]
     gk = kg.create_galois_keys(steps=steps)
     gt = ctx.key_context_data().galois_tool
@@ -160,11 +149,12 @@ def test_own_galois_keys_decrypt_to_the_automorphism(alpha, bits):
     assert [i for i, k in enumerate(gk.keys) if k is not None] == sorted(
         gt.get_index_from_elt(e) for e in gt.get_elts_from_steps(steps))
     assert gk.keys[1].shape == (-(-3 // alpha), 2, 3 + alpha, N_RT)
-    enc, dec, ev = st.Encryptor(ctx, kg.secret_key(), gen), st.Decryptor(ctx, kg.secret_key()), \
+    enc, dec, ev = st.Encryptor(ctx, kg.secret_key()), st.Decryptor(ctx, kg.secret_key()), \
         st.Evaluator(ctx)
     cd = ctx.first_context_data()
-    idx = torch.randperm(N_RT, generator=gen)[:6].tolist()
-    m = {i: int(v) for i, v in zip(idx, torch.randint(-(1 << 30), 1 << 30, (6,), generator=gen))}
+    rng = np.random.default_rng(10 + alpha)
+    idx = rng.permutation(N_RT)[:6].tolist()
+    m = {i: int(v) for i, v in zip(idx, rng.integers(-(1 << 30), 1 << 30, 6))}
     rows = torch.zeros((cd.coeff_modulus_size, N_RT), dtype=torch.int64)
     for i, v in m.items():
         rows[:, i] = torch.tensor([v % q for q in cd.key_moduli()])
@@ -198,7 +188,7 @@ def test_create_galois_keys_defaults_to_every_power_of_two_step():
     parms.set_poly_modulus_degree(64)
     parms.set_coeff_modulus(st.CoeffModulus.create(64, [40, 40, 40]))
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gk = st.KeyGenerator(ctx, torch.Generator().manual_seed(0)).create_galois_keys()
+    gk = st.KeyGenerator(ctx).create_galois_keys()
     gt = ctx.key_context_data().galois_tool
     assert [i for i, k in enumerate(gk.keys) if k is not None] == sorted(
         {gt.get_index_from_elt(e) for e in gt.get_elts_all()})

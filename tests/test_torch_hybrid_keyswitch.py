@@ -1,8 +1,10 @@
 """The port's hybrid key switching (α = 2 special primes) against
 seal_tpu.Evaluator at n = 1024, bit for bit: multiply, relinearize,
 rescale_to_next and the fused relinearize_rescale, with keys and
-ciphertexts made by seal_tpu and carried across. Also the fast base
-conversion's dot product, both of its routes, against exact integers."""
+ciphertexts that each makes from the same seed (the port's public-key
+encryption at the first level divides by both special primes). Also the
+fast base conversion's dot product, both of its routes, against exact
+integers."""
 
 import numpy as np
 import pytest

@@ -78,7 +78,7 @@ def test_context_defaults_to_cuda_and_raises_without_it():
 
 def test_cpu_context_keeps_everything_on_the_cpu():
     ctx = st.SEALContext(_parms(), sec_level=st.SecLevelType.NONE, device="cpu")
-    kg = st.KeyGenerator(ctx, torch.Generator().manual_seed(0))
+    kg = st.KeyGenerator(ctx)
     rk = kg.create_relin_keys()
     tables = ctx.first_context_data().ntt_tables
     for t in (kg.secret_key().data, rk.keys[0], tables.fwd_op, tables.mc.q):

@@ -186,6 +186,14 @@ def test_keyswitch_shoup_kernel_refuses_overflow():
         keyswitch.keyswitch_inner_shoup(t, k, k, consts, max(moduli))
 
 
+def _small_plain(cd, seed):
+    """An NTT-form plaintext of coefficients below 2^20 on cd's device."""
+    rows = np.random.default_rng(seed).integers(
+        0, 1 << 20, (cd.coeff_modulus_size, cd.parms.poly_modulus_degree))
+    return st.Plaintext(ntt.ntt_forward(torch.from_numpy(rows).to(cd.device), cd.ntt_tables),
+                        tuple(cd.parms_id), 2.0 ** 30)
+
+
 @pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
 def test_rotations_on_card_match_cpu(alpha, bits):
     """rotate_vector (with the NAF fallback), complex_conjugate and both
@@ -199,17 +207,14 @@ def test_rotations_on_card_match_cpu(alpha, bits):
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((alpha,) * 8)
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE)
     cpu = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gen = torch.Generator(device="cuda").manual_seed(alpha)
-    kg = st.KeyGenerator(ctx, gen)
+    kg = st.KeyGenerator(ctx)
     steps = list(range(1, 18))
     gk = kg.create_galois_keys(steps=steps + [0])
-    cd = ctx.first_context_data()
-    plain = st.Plaintext(ntt.ntt_forward(
-        torch.randint(0, 1 << 20, (cd.coeff_modulus_size, n), device="cuda", generator=gen),
-        cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
-    ct = st.Encryptor(ctx, kg.secret_key(), gen).encrypt_symmetric(plain)
+    ct = st.Encryptor(ctx, kg.secret_key()).encrypt_symmetric(
+        _small_plain(ctx.first_context_data(), alpha))
     ct_cpu = interop.ciphertext_from_numpy(cpu, ct.to_numpy(), ct.parms_id, ct.scale)
     gk_cpu = interop.galois_keys_from_numpy(
         cpu, [None if k is None else k.cpu().numpy().view(np.uint64) for k in gk.keys])
@@ -250,17 +255,14 @@ def test_pipeline_on_card_matches_cpu(alpha, bits, n):
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((alpha, n) * 4)
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE)
     cpu = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gen = torch.Generator(device="cuda").manual_seed(alpha)
-    kg = st.KeyGenerator(ctx, gen)
+    kg = st.KeyGenerator(ctx)
     rk = kg.create_relin_keys()
-    enc = st.Encryptor(ctx, kg.secret_key(), gen)
-    cd = ctx.first_context_data()
-    plain = st.Plaintext(ntt.ntt_forward(
-        torch.randint(0, 1 << 20, (cd.coeff_modulus_size, n), device="cuda", generator=gen),
-        cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
-    cts = [enc.encrypt_symmetric(plain) for _ in range(2)]
+    enc = st.Encryptor(ctx, kg.create_public_key(), kg.secret_key())
+    plain = _small_plain(ctx.first_context_data(), alpha)
+    cts = [enc.encrypt(plain), enc.encrypt_symmetric(plain)]
     carried = [interop.ciphertext_from_numpy(cpu, c.to_numpy(), c.parms_id, c.scale)
                for c in cts]
     rk_cpu = interop.relin_keys_from_numpy(cpu, [k.cpu().numpy().view(np.uint64)
@@ -294,16 +296,16 @@ def test_exact_schemes_on_card_match_cpu(scheme, n, alpha):
                             st.CoeffModulus.create(n, [50] * 4 + [60 - 5 * alpha] * alpha))
     parms.set_plain_modulus(t)
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((alpha, n) * 4)
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE)
     cpu = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gen = torch.Generator(device="cuda").manual_seed(alpha + n)
-    kg = st.KeyGenerator(ctx, gen)
+    kg = st.KeyGenerator(ctx)
     sk, rk, gk = kg.secret_key(), kg.create_relin_keys(), kg.create_galois_keys(steps=[1, 0])
     be = st.BatchEncoder(ctx)
     rng = np.random.default_rng(n)
     m1, m2 = (rng.integers(0, t, n, dtype=np.int64) for _ in range(2))
-    enc = st.Encryptor(ctx, sk, gen)
-    ct1, ct2, p2 = enc.encrypt_symmetric(be.encode(m1)), enc.encrypt_symmetric(be.encode(m2)), \
+    enc = st.Encryptor(ctx, kg.create_public_key(), sk)
+    ct1, ct2, p2 = enc.encrypt(be.encode(m1)), enc.encrypt_symmetric(be.encode(m2)), \
         be.encode(m2)
 
     def run(ev, rk, gk, a, b, p):
@@ -338,3 +340,92 @@ def test_exact_schemes_on_card_match_cpu(scheme, n, alpha):
         assert ct.correction_factor == want[name].correction_factor, name
         np.testing.assert_array_equal(be.decode(dec.decrypt(ct)).cpu().numpy(), exact[name],
                                       err_msg=name)
+
+
+def _ckks_context(n, bits, alpha, seed, device=None):
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
+    parms.set_special_modulus_size(alpha)
+    parms.set_random_seed(seed)
+    return st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device=device)
+
+
+@pytest.mark.parametrize("alpha,bits", [(1, [50] * 4 + [60]), (2, [50] * 4 + [55] * 2)])
+def test_ckks_round_trip_on_card_matches_cpu(alpha, bits):
+    """From one random seed the card and the CPU each make sk, pk and rk,
+    encode two complex vectors, encrypt them (public and secret key),
+    multiply -> relinearize -> rescale, decrypt and decode: every key,
+    plaintext, ciphertext and decoded double is the same on both, and the
+    decoded product is within 1e-4 of the exact one."""
+    n = 1024
+    rng = np.random.default_rng(alpha)
+    v1, v2 = (rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2) for _ in range(2))
+    runs = []
+    for device in ("cuda", "cpu"):
+        ctx = _ckks_context(n, bits, alpha, (alpha, 5) * 4, device)
+        kg = st.KeyGenerator(ctx)
+        pk, rk = kg.create_public_key(), kg.create_relin_keys()
+        encoder, ev = st.CKKSEncoder(ctx), st.Evaluator(ctx)
+        enc = st.Encryptor(ctx, pk, kg.secret_key())
+        p1, p2 = encoder.encode(v1, 2.0 ** 40), encoder.encode(v2, 2.0 ** 40)
+        c1, c2 = enc.encrypt(p1), enc.encrypt_symmetric(p2)
+        out = ev.rescale_to_next(ev.relinearize(ev.multiply(c1, c2), rk))
+        plain = st.Decryptor(ctx, kg.secret_key()).decrypt(out)
+        decoded = encoder.decode(plain, complex_out=True).cpu().numpy()
+        runs.append([kg.secret_key().to_numpy(), pk.to_numpy(), rk.keys[0].cpu().numpy(),
+                     p1.to_numpy(), p2.to_numpy(), c1.to_numpy(), c2.to_numpy(),
+                     out.to_numpy(), plain.to_numpy(), decoded])
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(runs[0][-1] - v1 * v2).max() <= 1e-4
+
+
+def test_noise_budget_chain_on_card():
+    """tests/vectors/noise_budget_chain.json (SEAL's budgets along a BFV
+    chain at n = 8192 from seed (1, ..., 8)) on the card."""
+    import json
+    import pathlib
+
+    steps = json.loads((pathlib.Path(__file__).parent / "vectors" /
+                        "noise_budget_chain.json").read_text())["steps"]
+    parms = st.EncryptionParameters(st.SchemeType.BFV)
+    parms.set_poly_modulus_degree(8192)
+    parms.set_coeff_modulus(st.CoeffModulus.create(8192, [43, 43, 43, 43, 46]))
+    parms.set_plain_modulus(st.PlainModulus.batching(8192, 20))
+    parms.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
+    ctx = st.SEALContext(parms)
+    kg = st.KeyGenerator(ctx)
+    rk, ev, be = kg.create_relin_keys(), st.Evaluator(ctx), st.BatchEncoder(ctx)
+    dec = st.Decryptor(ctx, kg.secret_key())
+    ct = st.Encryptor(ctx, kg.create_public_key()).encrypt(
+        be.encode(np.arange(8192, dtype=np.int64) % 7))
+    got = [["fresh", dec.invariant_noise_budget(ct)]]
+    for _ in range(4):
+        ct = ev.multiply(ct, ct)
+        got.append(["multiply", dec.invariant_noise_budget(ct)])
+        ct = ev.relinearize(ct, rk)
+        got.append(["relinearize", dec.invariant_noise_budget(ct)])
+        if ctx.get_context_data(ct.parms_id).next_context_data is None:
+            break
+        ct = ev.mod_switch_to_next(ct)
+        got.append(["mod_switch", dec.invariant_noise_budget(ct)])
+    assert got == steps
+
+
+def test_large_coefficient_encodes_on_card():
+    """ckks_encode_big_n1024.json: coefficients past 2^64 (scales 2^80 and
+    2^150) reduce on the card as SEAL reduces them."""
+    import json
+    import pathlib
+
+    vec = json.loads((pathlib.Path(__file__).parent / "vectors" /
+                      "ckks_encode_big_n1024.json").read_text())
+    n = vec["n"]
+    encoder = st.CKKSEncoder(_ckks_context(n, vec["bits"], 1, None))
+    i = np.arange(n >> 1, dtype=np.float64)
+    v = ((i % 89) / 89.0 - 0.4) + 1j * ((i % 23) / 23.0)
+    for lg in (80, 150):
+        np.testing.assert_array_equal(
+            encoder.encode(v, 2.0 ** lg).to_numpy().reshape(-1),
+            np.array(vec[f"plain_{lg}"], dtype=np.uint64), err_msg=f"scale 2^{lg}")

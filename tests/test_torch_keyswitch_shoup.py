@@ -10,7 +10,8 @@ on the CPU, bit for bit.
     reduced as the kernel and seal_tpu reduce them.
 (e) relinearize and rotate_vector with the flag on, against seal_tpu with
     its flag on (its Pallas key switch in interpret mode, n = 512, and
-    n = 256 with 60-bit primes and d = 5), and the port with the flag on
+    n = 256 with 60-bit primes and d = 5; keys and ciphertext made by each
+    from one seed), and the port with the flag on
     against the port with it off, on every key switch of the port, with the
     Shoup route shown to be taken.
 """
@@ -24,11 +25,11 @@ from seal_tpu.config import config as jax_config
 from seal_tpu.dtypes import to_device, to_host
 from seal_tpu.ops import keyswitch_pallas as ksp
 import seal_tpu_torch as st
-from seal_tpu_torch import interop
 from seal_tpu_torch.config import config
 from seal_tpu_torch.modulus import CoeffModulus
 from seal_tpu_torch.ops import keyswitch, ntt
 from seal_tpu_torch.utils import numth
+from tests.test_torch_evaluator import seeded_state_matches_seal_tpu
 
 
 def _rows(rng, lead, moduli, n):
@@ -126,24 +127,18 @@ def _relinearize_and_rotate_against_seal_tpu(n, bits):
         sp.set_coeff_modulus(seal_tpu.CoeffModulus.create(n, bits))
         sp.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
         sctx = seal_tpu.SEALContext(sp, sec_level=seal_tpu.SecLevelType.NONE)
-        kg = seal_tpu.KeyGenerator(sctx)
-        enc = seal_tpu.Encryptor(sctx, kg.create_public_key())
-        srk, sgk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1])
-        encoder = seal_tpu.CKKSEncoder(sctx)
-        sct = enc.encrypt(encoder.encode(np.linspace(-1, 1, encoder.slot_count), 2.0 ** 30))
+        parms = st.EncryptionParameters(st.SchemeType.CKKS)
+        parms.set_poly_modulus_degree(n)
+        parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
+        parms.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
+        ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
+        (srk, sgk, (sct,)), (rk, gk, (ct,)) = seeded_state_matches_seal_tpu(
+            sctx, ctx, [np.linspace(-1, 1, n // 2)], 2.0 ** 30, [1])
         sev = seal_tpu.Evaluator(sctx)
         s_relin = sev.relinearize(sev.multiply(sct, sct), srk)
         want = [s_relin.to_numpy(), sev.rotate_vector(s_relin, 1, sgk).to_numpy()]
         assert "_shoup_quot" in srk.__dict__ and "_shoup_quot" in sgk.__dict__
 
-        parms = st.EncryptionParameters(st.SchemeType.CKKS)
-        parms.set_poly_modulus_degree(n)
-        parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
-        ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-        rk = interop.relin_keys_from_numpy(ctx, [to_host(k) for k in srk.keys])
-        gk = interop.galois_keys_from_numpy(
-            ctx, [None if k is None else to_host(k) for k in sgk.keys])
-        ct = interop.ciphertext_from_numpy(ctx, sct.to_numpy(), sct.parms_id, sct.scale)
         ev = st.Evaluator(ctx)
         got = {}
         for shoup in (True, False):
@@ -180,14 +175,14 @@ def test_flag_on_equals_flag_off_on_every_key_switch(alpha, bits):
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
     parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((alpha,) * 8)
     ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gen = torch.Generator().manual_seed(alpha)
-    kg = st.KeyGenerator(ctx, gen)
+    kg = st.KeyGenerator(ctx)
     rk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=list(range(1, 18)) + [0])
     cd = ctx.first_context_data()
-    plain = st.Plaintext(ntt.ntt_forward(torch.randint(0, 1 << 20, (3, n), generator=gen),
-                                         cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
-    ct = st.Encryptor(ctx, kg.secret_key(), gen).encrypt_symmetric(plain)
+    rows = torch.from_numpy(np.random.default_rng(alpha).integers(0, 1 << 20, (3, n)))
+    plain = st.Plaintext(ntt.ntt_forward(rows, cd.ntt_tables), tuple(cd.parms_id), 2.0 ** 30)
+    ct = st.Encryptor(ctx, kg.secret_key()).encrypt_symmetric(plain)
     ev = st.Evaluator(ctx)
 
     def run():

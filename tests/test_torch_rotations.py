@@ -1,5 +1,6 @@
 """The port's CKKS rotations against seal_tpu.Evaluator at n = 1024, bit for
-bit, with Galois keys and ciphertexts made by seal_tpu and carried across:
+bit, with Galois keys and ciphertexts that each makes from the same seed
+(and that must agree bit for bit):
 rotate_vector by a step with no key of its own (the NAF fallback, two key
 switches), complex_conjugate, and rotate_batch_hoisted on both of its
 branches (at most 16 nonzero steps: permuted keys, permuted output; 17
@@ -16,26 +17,29 @@ import numpy as np
 
 import seal_tpu
 import seal_tpu_torch as st
-from seal_tpu.dtypes import to_host
-from seal_tpu_torch import interop
+from tests.test_torch_evaluator import seeded_state_matches_seal_tpu
 
 HOISTED_STEPS = list(range(1, 18))      # 17 steps: the loop branch
 NAF_STEP = 18                           # = 2 + 16, no key of its own
 
 
 def assert_rotations_match_seal_tpu(alpha, bits, n=1024):
+    seed = (9, 1, 2, 3, 4, 5, 6, alpha)
     sp = seal_tpu.EncryptionParameters(seal_tpu.SchemeType.CKKS)
     sp.set_poly_modulus_degree(n)
     sp.set_coeff_modulus(seal_tpu.CoeffModulus.create(n, bits))
     sp.set_special_modulus_size(alpha)
-    sp.set_random_seed((9, 1, 2, 3, 4, 5, 6, alpha))
+    sp.set_random_seed(seed)
     sctx = seal_tpu.SEALContext(sp, sec_level=seal_tpu.SecLevelType.NONE)
-    kg = seal_tpu.KeyGenerator(sctx)
-    sgk = kg.create_galois_keys(steps=HOISTED_STEPS + [0])
-    enc = seal_tpu.Encryptor(sctx, kg.create_public_key())
-    encoder = seal_tpu.CKKSEncoder(sctx)
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
+    parms.set_special_modulus_size(alpha)
+    parms.set_random_seed(seed)
+    ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
     rng = np.random.default_rng(alpha)
-    sct = enc.encrypt(encoder.encode(rng.uniform(-1, 1, encoder.slot_count), 2.0 ** 30))
+    (_, sgk, (sct,)), (_, gk, (ct,)) = seeded_state_matches_seal_tpu(
+        sctx, ctx, [rng.uniform(-1, 1, n // 2)], 2.0 ** 30, HOISTED_STEPS + [0])
 
     def rotations(ev, gk, ct):
         return {"rotate_vector_naf": [ev.rotate_vector(ct, NAF_STEP, gk)],
@@ -45,16 +49,6 @@ def assert_rotations_match_seal_tpu(alpha, bits, n=1024):
 
     sev = seal_tpu.Evaluator(sctx)
     want = jax.jit(lambda a: rotations(sev, sgk, a))(sct)
-
-    parms = st.EncryptionParameters(st.SchemeType.CKKS)
-    parms.set_poly_modulus_degree(n)
-    parms.set_coeff_modulus(st.CoeffModulus.create(n, bits))
-    parms.set_special_modulus_size(alpha)
-    ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device="cpu")
-    gk = interop.galois_keys_from_numpy(
-        ctx, [None if k is None else to_host(k) for k in sgk.keys])
-    ct = interop.ciphertext_from_numpy(ctx, sct.to_numpy(), sct.parms_id, sct.scale,
-                                       sct.is_ntt_form)
     got = rotations(st.Evaluator(ctx), gk, ct)
     for op, outs in got.items():
         assert len(outs) == len(want[op]), op
