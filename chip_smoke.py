@@ -57,10 +57,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    on the card and on the CPU: every key, plaintext, ciphertext and decoded
    double bit for bit the same, and the decoded product within 1e-4 of
    numpy's exact product.
-9. K1 passes: the device time of each of K1's two kernels at phase 2's
+9. batch, in both CKKS modes, bench.py's batched main path (its jax.vmap
+   over B ciphertexts that share one relinearization key): from
+   parms.set_random_seed, encode_many of 16 + 16 vectors from the unit
+   disc at scale 2^40 -> encrypt_many and encrypt_symmetric_many -> the
+   two stacked batches [16, 2, 8, N] through multiply -> relinearize ->
+   rescale (the fused tail at α=2), with the Shoup flag off (K2) and on
+   (K3) -> decrypt_many -> decode_many. Every member is held bit for bit
+   against its own sequential call on the card (encode, encrypt, the op,
+   decrypt, decode), the whole batch against the plain path on CPU copies,
+   and each decoded product within 1e-4 of numpy's. Then, at B = 1 (one
+   unbatched ciphertext), 4 and 16 and with the flag off and on: the
+   launches per batched op (which must equal one ciphertext's), host-clock
+   ms per batch and per ciphertext (median of 5, synchronised), and the
+   torch.profiler device-busy share of one batched op.
+10. exact batch: BFV and BGV at phase 7's parameters, B = 4: encode_many ->
+   encrypt_many -> multiply -> relinearize -> mod_switch_to_next on the
+   stacked batch, flag off and on, each member against its sequential call
+   on the card, decrypt_many -> decode_many against the exact products.
+11. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-10. kernels: one JSON line with every ported kernel, its check and times.
+12. kernels: one JSON line with every ported kernel, its check and times.
+
+Phases 3 and 4 also hold K2 and K3 over a batch [16, J, I, N] that shares
+one key, at both modes' (J, I), against their plain versions.
 
 Phases 7 and 8 print, per step, the host-clock ms, the kernel launches and
 the bytes drawn from the byte stream with their rate.
@@ -291,6 +312,61 @@ def key_shapes():
     return (("alpha1_parity", 8, 9), ("alpha2_fused", 4, 10))
 
 
+BATCH = 16                      # bench.py's B (LAST_VALIDATED["batch"])
+
+
+def keyswitch_bytes(B, J, I, quotients):
+    """Bytes a K2 (K3 with quotients) call over B targets must move: t and
+    the output once per member, the key (and its quotients) once."""
+    key_words = (4 if quotients else 2) * J * I * N
+    return (B * J * I * N + key_words + 2 * B * I * N) * 8
+
+
+def keyswitch_batch(kind, mode, J, I, rng):
+    """K2 or K3 over a batch [BATCH, J, I, N] that shares one key [J, 2, I,
+    N]: one launch, bit for bit the plain version on CPU copies, timed.
+    Returns its line."""
+    import torch
+
+    from seal_tpu_torch import CoeffModulus, cuda
+    from seal_tpu_torch.ops import keyswitch
+
+    moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+    q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
+    t = random_residues((BATCH, J, I, N), moduli, rng)
+    k = random_residues((J, 2, I, N), moduli, rng)
+    t[..., 0] = k[..., 0] = q[:, 0] - 1
+    consts, max_q = keyswitch.pack_mod_consts(moduli, "cpu"), max(moduli)
+    shoup = kind == "keyswitch_inner_shoup"
+    args = (t, k, keyswitch.key_quotients(k, moduli)) if shoup else (t, k)
+    dev = [a.cuda() for a in args] + [consts.cuda()]
+    extra = (max_q,) if shoup else ()
+    kernel = getattr(keyswitch, f"{kind}_cuda")
+    plain = getattr(keyswitch, f"{kind}_plain")
+    before = cuda.launches[kind]
+    got = kernel(*dev, *extra)
+    torch.cuda.synchronize()
+    require(cuda.launches[kind] == before + 1, f"{kind} batch: one launch")
+    want = plain(*args, consts, *extra)
+    require(torch.equal(got.cpu(), want), f"{kind} [{BATCH}, {J}, {I}, N] bit-exact")
+    require(torch.equal(got[BATCH - 1], kernel(dev[0][BATCH - 1], *dev[1:], *extra)),
+            f"{kind} batch member equals its unbatched call")
+    run = lambda: kernel(*dev, *extra)      # noqa: E731
+    per_member = I * N * 2 * J * ((2 * MUL_LO + MUL_HI) if shoup else (MUL_LO + MUL_HI))
+    if not shoup:
+        per_member += I * N * 2 * (4 * MUL_LO + 3 * MUL_HI)
+    b_ms, b_by = bound(keyswitch_bytes(BATCH, J, I, shoup), BATCH * per_member)
+    line = {"phase": "K3" if shoup else "K2", "kernel": kind, "shape": [BATCH, J, I, N],
+            "mode": mode, "bit_exact": True, "max_abs_err": 0, "ms": cuda_ms(run),
+            "device_ms": graph_ms(run),
+            "plain_ms": host_ms(lambda: plain(*args, consts, *extra), reps=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_separate_calls": bound(BATCH * keyswitch_bytes(1, J, I, shoup),
+                                             BATCH * per_member)[0]}
+    emit(line)
+    return line
+
+
 def phase_keyswitch(rng):
     import torch
 
@@ -320,7 +396,9 @@ def phase_keyswitch(rng):
                 "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
         results[mode] = line
-    return {"keyswitch_inner": results["alpha1_parity"]}
+        results[mode, BATCH] = keyswitch_batch("keyswitch_inner", mode, J, I, rng)
+    return {"keyswitch_inner": results["alpha1_parity"],
+            "keyswitch_inner_batch": results["alpha1_parity", BATCH]}
 
 
 def phase_keyswitch_shoup(rng):
@@ -360,7 +438,9 @@ def phase_keyswitch_shoup(rng):
                 "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
         results[mode] = line
-    return {"keyswitch_inner_shoup": results["alpha1_parity"]}
+        results[mode, BATCH] = keyswitch_batch("keyswitch_inner_shoup", mode, J, I, rng)
+    return {"keyswitch_inner_shoup": results["alpha1_parity"],
+            "keyswitch_inner_shoup_batch": results["alpha1_parity", BATCH]}
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +998,204 @@ def phase_round_trip(mode, spec):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the batched main path
+# ---------------------------------------------------------------------------
+
+BATCH_SIZES = (1, 4, BATCH)     # B = 1 is one unbatched ciphertext
+EXACT_BATCH = 4
+
+
+def shoup_both(fn):
+    """(fn() with the Shoup flag off, its launches, fn() with it on, its
+    launches): each route on the card, counted from 0."""
+    from seal_tpu_torch.config import config
+
+    out, launches = counted(fn)
+    config.keyswitch_shoup = True
+    try:
+        out_shoup, launches_shoup = counted(fn)
+    finally:
+        config.keyswitch_shoup = False
+    return out, launches, out_shoup, launches_shoup
+
+
+def batch_timings(run, single, batch):
+    """Per B of BATCH_SIZES, flag off and on: the launches of one call of
+    run(x) (which must equal one ciphertext's), the host-clock ms per batch
+    and per ciphertext (median of 5, synchronised), and the device-busy
+    share of one call under torch.profiler. x is `single` for B = 1, else
+    the first B members of `batch`."""
+    import torch
+
+    from seal_tpu_torch.config import config
+
+    out = {}
+    for shoup in (False, True):
+        config.keyswitch_shoup = shoup
+        try:
+            base = None
+            for B in BATCH_SIZES:
+                x = single if B == 1 else batch(B)
+                _, launches = counted(lambda: run(x))
+                if base is None:
+                    base = launches
+                require(launches == base, f"B={B}: launches per batch equal one ciphertext's")
+                ms = host_ms(lambda: (run(x), torch.cuda.synchronize()), reps=5)
+                prof = device_profile(lambda: run(x))
+                out[f"B{B}_{'shoup' if shoup else 'k2'}"] = {
+                    "launches": launches, "ms_per_batch": ms, "ms_per_ciphertext": ms / B,
+                    "device_busy_share": (prof["device_busy_ms"] / prof["device_span_ms"]
+                                          if prof.get("device_span_ms") else None),
+                    "profile": prof}
+        finally:
+            config.keyswitch_shoup = False
+    return out
+
+
+def phase_batch(mode, spec):
+    """bench.py's batched pipeline at B = 16 through the *_many APIs, on the
+    card against each member's sequential card calls and against the plain
+    path on CPU copies; then the times and launches per B."""
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import (
+        CKKSEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator, Plaintext, interop)
+    from seal_tpu_torch.dtypes import stack_ciphertexts, u64_numpy
+
+    ctx, ctx_cpu = contexts(spec, seed_words(SEED + 3))
+    rng = np.random.default_rng(SEED + 3)
+    xs, ys = (unit_disc(rng, BATCH * (N // 2)).reshape(BATCH, N // 2) for _ in range(2))
+    t0 = time.perf_counter()
+    kg = KeyGenerator(ctx)
+    sk, rk = kg.secret_key(), kg.create_relin_keys()
+    enc = Encryptor(ctx, kg.create_public_key(), sk)
+    encoder, dec, ev = CKKSEncoder(ctx), Decryptor(ctx, sk), Evaluator(ctx)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fused = spec["fused"]
+    record = {}
+    px = step(record, "encode_many", lambda: encoder.encode_many(xs, ROUND_TRIP_SCALE))
+    py = step(record, "encode_many_second", lambda: encoder.encode_many(ys, ROUND_TRIP_SCALE))
+    cx = step(record, "encrypt_many", lambda: enc.encrypt_many(px))
+    cy = step(record, "encrypt_symmetric_many", lambda: enc.encrypt_symmetric_many(py))
+    X, Y = stack_ciphertexts(cx), stack_ciphertexts(cy)
+    out = step(record, "mult_relin_rescale", lambda: run_mode(ev, fused, X, Y, rk))
+    plains = step(record, "decrypt_many", lambda: dec.decrypt_many(out.unbind()))
+    decoded = step(record, "decode_many",
+                   lambda: encoder.decode_many(plains, complex_out=True))
+    _, launches, out_shoup, launches_shoup = shoup_both(lambda: run_mode(ev, fused, X, Y, rk))
+    require(torch.equal(out_shoup.data, out.data), f"batch {mode}: Shoup route bit-identical")
+    require(launches["keyswitch_inner"] > 0 and launches_shoup["keyswitch_inner_shoup"] > 0,
+            f"batch {mode}: each key-switch route launched its kernel")
+    err = float(np.abs(decoded.cpu().numpy() - xs * ys).max())
+    require(err <= DECODE_BOUND, f"batch {mode}: decoded error {err} within {DECODE_BOUND}")
+
+    # every member against its own sequential calls on the card
+    for b in range(BATCH):
+        require(torch.equal(px[b].data, encoder.encode(xs[b], ROUND_TRIP_SCALE).data)
+                and torch.equal(cx[b].data, enc.encrypt(px[b]).data)
+                and torch.equal(cy[b].data, enc.encrypt_symmetric(py[b]).data),
+                f"batch {mode} member {b}: encode and encrypt equal the sequential calls")
+        one = run_mode(ev, fused, cx[b], cy[b], rk)
+        require(torch.equal(out.data[b], one.data) and tuple(one.parms_id) == tuple(out.parms_id)
+                and one.scale == out.scale,
+                f"batch {mode} member {b}: the batched op equals the sequential call")
+        plain = dec.decrypt(one)
+        require(torch.equal(plains[b].data, plain.data)
+                and torch.equal(decoded[b], encoder.decode(plain, complex_out=True)),
+                f"batch {mode} member {b}: decrypt and decode equal the sequential calls")
+
+    # the whole batch on CPU copies: the plain path
+    t0 = time.perf_counter()
+    enc_cpu = CKKSEncoder(ctx_cpu)
+    rk_cpu = interop.relin_keys_from_numpy(ctx_cpu, [u64_numpy(k) for k in rk.keys])
+    carried = [interop.ciphertext_from_numpy(ctx_cpu, c.to_numpy(), c.parms_id, c.scale)
+               for c in (X, Y)]
+    out_cpu = run_mode(Evaluator(ctx_cpu), fused, *carried, rk_cpu)
+    px_cpu = enc_cpu.encode_many(xs, ROUND_TRIP_SCALE)
+    plains_cpu = [Plaintext(interop.u64_to_tensor(p.to_numpy(), ctx_cpu), p.parms_id, p.scale)
+                  for p in plains]
+    decoded_cpu = enc_cpu.decode_many(plains_cpu, complex_out=True)
+    cpu_s = time.perf_counter() - t0
+    require(np.array_equal(out.to_numpy(), out_cpu.to_numpy()),
+            f"batch {mode}: card bit-identical to the plain path")
+    require(all(np.array_equal(a.to_numpy(), b.to_numpy()) for a, b in zip(px, px_cpu)),
+            f"batch {mode}: encode_many on the card bit-identical to the plain path")
+    require(np.array_equal(decoded.cpu().numpy().view(np.uint64),
+                           decoded_cpu.numpy().view(np.uint64)),
+            f"batch {mode}: decode_many on the card bit-identical to the plain path")
+
+    timings = batch_timings(lambda x: run_mode(ev, fused, x[0], x[1], rk), (cx[0], cy[0]),
+                            lambda B: (stack_ciphertexts(cx[:B]), stack_ciphertexts(cy[:B])))
+    emit({"phase": "batch", "mode": mode, "n": N, "batch": BATCH, "data_primes": 8,
+          "special_primes": spec["alpha"], "bit_exact_vs_sequential": True,
+          "bit_exact_vs_plain": True, "shoup_bit_identical": True, "max_decode_err": err,
+          "decode_bound": DECODE_BOUND, "steps": record, "launches": launches,
+          "launches_shoup": launches_shoup, "per_batch_size": timings, "setup_s": setup_s,
+          "plain_cpu_s": cpu_s})
+    total = {}
+    for counts in [r["launches"] for r in record.values()] + [launches, launches_shoup]:
+        add_counts(total, counts)
+    return total
+
+
+def phase_exact_batch(scheme):
+    """BFV or BGV multiply -> relinearize -> mod_switch_to_next on a stacked
+    batch of EXACT_BATCH, flag off and on, each member against its
+    sequential card call; decrypt_many -> decode_many exact."""
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import BatchEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator
+    from seal_tpu_torch.dtypes import stack_ciphertexts
+
+    name = scheme.name
+    ctx, _ = exact_contexts(scheme)
+    t = ctx.key_context_data().parms.plain_modulus.value
+    kg = KeyGenerator(ctx)
+    sk, rk = kg.secret_key(), kg.create_relin_keys()
+    enc, be, ev = Encryptor(ctx, kg.create_public_key(), sk), BatchEncoder(ctx), Evaluator(ctx)
+    rng = np.random.default_rng(SEED + 10 + int(scheme))
+    m1, m2 = (rng.integers(0, t, (EXACT_BATCH, N), dtype=np.int64) for _ in range(2))
+    record = {}
+    p1 = step(record, "encode_many", lambda: be.encode_many(m1))
+    p2 = step(record, "encode_many_second", lambda: be.encode_many(m2))
+    c1 = step(record, "encrypt_many", lambda: enc.encrypt_many(p1))
+    c2 = step(record, "encrypt_symmetric_many", lambda: enc.encrypt_symmetric_many(p2))
+
+    def path(a, b):
+        return ev.mod_switch_to_next(ev.relinearize(ev.multiply(a, b), rk))
+
+    X, Y = stack_ciphertexts(c1), stack_ciphertexts(c2)
+    out, launches, out_shoup, launches_shoup = shoup_both(lambda: path(X, Y))
+    require(torch.equal(out.data, out_shoup.data)
+            and out.correction_factor == out_shoup.correction_factor,
+            f"{name} batch: Shoup route bit-identical")
+    for b in range(EXACT_BATCH):
+        one, single = counted(lambda: path(c1[b], c2[b]))
+        require(single == launches, f"{name} batch: launches per batch equal one ciphertext's")
+        require(torch.equal(out.data[b], one.data)
+                and out.correction_factor == one.correction_factor,
+                f"{name} batch member {b}: the batched op equals the sequential call")
+    dec = Decryptor(ctx, sk)
+    plains = step(record, "decrypt_many", lambda: dec.decrypt_many(out.unbind()))
+    slots = step(record, "decode_many", lambda: be.decode_many(plains).cpu().numpy())
+    require(np.array_equal(slots, m1 * m2 % t), f"{name} batch: decode equals the exact slots")
+    ms_batch = host_ms(lambda: (path(X, Y), torch.cuda.synchronize()), reps=5)
+    ms_one = host_ms(lambda: (path(c1[0], c2[0]), torch.cuda.synchronize()), reps=5)
+    emit({"phase": "exact_batch", "scheme": name, "n": N, "batch": EXACT_BATCH,
+          "bit_exact_vs_sequential": True, "shoup_bit_identical": True, "decode_exact": True,
+          "launches": launches, "launches_shoup": launches_shoup, "steps": record,
+          "ms_per_batch": ms_batch, "ms_per_ciphertext": ms_batch / EXACT_BATCH,
+          "ms_one_ciphertext": ms_one})
+    total = {}
+    for counts in [r["launches"] for r in record.values()] + [launches, launches_shoup]:
+        add_counts(total, counts)
+    return total
+
+
 def device_profile(fn):
     """One call of fn under torch.profiler, after one call untraced: the
     CUDA kernels and copies it ran, their summed device time, and the span
@@ -981,6 +1259,10 @@ def main() -> int:
         add_counts(total, phase_exact(scheme))
     for mode, spec in MODES.items():
         add_counts(total, phase_round_trip(mode, spec))
+    for mode, spec in MODES.items():
+        add_counts(total, phase_batch(mode, spec))
+    for scheme in (SchemeType.BFV, SchemeType.BGV):
+        add_counts(total, phase_exact_batch(scheme))
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
     phase_ntt_passes(ntt_runs)
@@ -999,14 +1281,17 @@ def main() -> int:
               "ntt_inverse": "seal_tpu_torch/csrc/ntt.cu",
               "keyswitch_inner": "seal_tpu_torch/csrc/keyswitch.cu",
               "keyswitch_inner_shoup": "seal_tpu_torch/csrc/keyswitch.cu"}
+    timed = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "shape")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": total[name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "device_ms": k["device_ms"],
          "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-         "shape": k["shape"]}
-        for name, k in kernels.items()]})
+         "shape": k["shape"],
+         **({"batch": {key: kernels[name + "_batch"][key] for key in timed}}
+            if name + "_batch" in kernels else {})}
+        for name, k in kernels.items() if not name.endswith("_batch")]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

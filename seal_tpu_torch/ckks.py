@@ -15,6 +15,11 @@ built on the host, once per encoder.
 seal_tpu's encode_device / decode_device emulate float64 with two or three
 float32 words, since the TPU has none; the card computes float64 itself, so
 here they are the same functions as encode and decode.
+
+encode_many / decode_many (seal_tpu's batch API) run the same stages over
+[B, ...] tensors, one launch per stage for the whole batch, in the same
+float64 rounding order, so each member's bits are its own encode's or
+decode's.
 """
 
 from __future__ import annotations
@@ -111,54 +116,81 @@ class CKKSEncoder:
             values = [values] * self.slots
         if not isinstance(values, torch.Tensor):
             values = torch.from_numpy(np.asarray(values, dtype=np.complex128).reshape(-1))
-        values = values.to(self.context.device, torch.complex128).reshape(-1)
-        k = values.numel()
-        if k > self.slots:
+        values = values.to(self.context.device, torch.complex128).reshape(1, -1)
+        if values.shape[1] > self.slots:
             raise ValueError("values_size is too large")
         self._check_scale(scale, cd)
-
-        # the values at the bit-reversed index map, their conjugates in the
-        # upper half (ckks.h:493-502)
-        n, dev = self.n, cd.device
-        re = torch.zeros(n, dtype=torch.float64, device=dev)
-        im = torch.zeros(n, dtype=torch.float64, device=dev)
-        re[self._index_map[:k]] = values.real
-        im[self._index_map[:k]] = values.imag
-        re[self._index_map[self.slots:self.slots + k]] = values.real
-        im[self._index_map[self.slots:self.slots + k]] = -values.imag
-        dwt.transform_from_rev(re, im, self._inv_roots, scalar=scale / float(n))
-
-        # the bit count of the largest unrounded coefficient (ckks.h:504-515)
-        max_coeff = float(re.abs().max())
-        max_bits = int(math.ceil(math.log2(max(max_coeff, 1.0)))) + 1
-        if max_bits >= cd.total_coeff_modulus_bit_count:
-            raise ValueError("encoded values are too large")
-        rows = self._reduce(dwt.round_half_away(re), cd)
-        return Plaintext(ntt_mod.ntt_forward(rows, cd.ntt_tables), tuple(cd.parms_id),
+        return Plaintext(self._encode_rows(values, scale, cd)[0], tuple(cd.parms_id),
                          float(scale))
 
+    def encode_many(self, values_batch, scale: float, parms_id=None) -> list[Plaintext]:
+        """B slot vectors [B, m] at one scale and level, as one batch through
+        every stage. Bit for bit [encode(v, scale) for v in values_batch];
+        the plaintexts are views of one [B, L, N] tensor."""
+        cd = self._context_data(parms_id)
+        if isinstance(values_batch, torch.Tensor):
+            values = values_batch.to(self.context.device, torch.complex128)
+        else:
+            values = torch.from_numpy(np.asarray(values_batch, dtype=np.complex128)).to(
+                self.context.device)
+        if values.dim() != 2:
+            raise ValueError("values_batch must be [B, m]")
+        if values.shape[1] > self.slots:
+            raise ValueError("values_size is too large")
+        self._check_scale(scale, cd)
+        if values.shape[0] == 0:
+            return []
+        rows = self._encode_rows(values, scale, cd)
+        return [Plaintext(r, tuple(cd.parms_id), float(scale)) for r in rows.unbind(0)]
+
+    def _encode_rows(self, values: torch.Tensor, scale: float, cd: ContextData) -> torch.Tensor:
+        """Complex values [B, k] on the device -> NTT-form rows [B, L, N]."""
+        # the values at the bit-reversed index map, their conjugates in the
+        # upper half (ckks.h:493-502)
+        B, k = values.shape
+        n, dev = self.n, cd.device
+        re = torch.zeros((B, n), dtype=torch.float64, device=dev)
+        im = torch.zeros((B, n), dtype=torch.float64, device=dev)
+        re[:, self._index_map[:k]] = values.real
+        im[:, self._index_map[:k]] = values.imag
+        re[:, self._index_map[self.slots:self.slots + k]] = values.real
+        im[:, self._index_map[self.slots:self.slots + k]] = -values.imag
+        dwt.transform_from_rev(re, im, self._inv_roots, scalar=scale / float(n))
+
+        # the bit count of each member's largest unrounded coefficient
+        # (ckks.h:504-515), read in one sync
+        for max_coeff in re.abs().amax(-1).tolist():
+            max_bits = int(math.ceil(math.log2(max(max_coeff, 1.0)))) + 1
+            if max_bits >= cd.total_coeff_modulus_bit_count:
+                raise ValueError("encoded values are too large")
+        rows = self._reduce(dwt.round_half_away(re), cd)
+        return ntt_mod.ntt_forward(rows, cd.ntt_tables)
+
     def _reduce(self, coeffs: torch.Tensor, cd: ContextData) -> torch.Tensor:
-        """Integral doubles [N] -> their residues [L, N]. Below 2^63 a value
-        converts to int64 exactly; above, m·2^e with m < 2^53 (torch.frexp,
-        exact) reduces as (m mod q)·(2^e mod q). A negative value takes
-        q - (|v| mod q)."""
+        """Integral doubles [..., N] -> their residues [..., L, N]. Below
+        2^63 a value converts to int64 exactly; above, m·2^e with m < 2^53
+        (torch.frexp, exact) reduces as (m mod q)·(2^e mod q). A negative
+        value takes q - (|v| mod q)."""
         pow2 = cd.cached("pow2_mod_q", lambda: _pow2_mod_q(cd))
         mc = cd.mod_consts
+        L, E = pow2.shape
         a = coeffs.abs()
-        small = a < 2.0 ** 63
+        small = (a < 2.0 ** 63).unsqueeze(-2)
         mant, exp = torch.frexp(a)
-        m = torch.where(small, a, mant * 2.0 ** 53).to(torch.int64)
-        r = modarith.barrett_reduce_64(m, mc.q, mc.ratio1)                   # [L, N]
-        e = (exp.to(torch.int64) - 53).clamp(0, pow2.shape[1] - 1)
-        p2 = torch.gather(pow2, 1, e.unsqueeze(0).expand(mc.count, -1))
+        m = torch.where(a < 2.0 ** 63, a, mant * 2.0 ** 53).to(torch.int64)
+        r = modarith.barrett_reduce_64(m.unsqueeze(-2), mc.q, mc.ratio1)     # [..., L, N]
+        e = (exp.to(torch.int64) - 53).clamp(0, E - 1).unsqueeze(-2)
+        rows = torch.arange(L, device=e.device).unsqueeze(-1) * E
+        p2 = pow2.reshape(-1)[e + rows]
         r = torch.where(small, r, modarith.mul_mod(r, p2, mc.q, mc.ratio0, mc.ratio1))
-        return torch.where(coeffs < 0, modarith.neg_mod(r, mc.q), r)
+        return torch.where(coeffs.unsqueeze(-2) < 0, modarith.neg_mod(r, mc.q), r)
 
     # -- decode ---------------------------------------------------------------
 
     def decode(self, plain: Plaintext, complex_out: bool = False) -> torch.Tensor:
         """The n/2 slot values of an NTT-form plaintext, float64 (complex128
-        with complex_out) on the context's device."""
+        with complex_out) on the context's device; [*batch, n/2] for a
+        batch."""
         if plain.data is None or not plain.is_ntt_form:
             raise ValueError("plain is not valid for CKKS decoding")
         cd = self.context.get_context_data(plain.parms_id)
@@ -166,13 +198,32 @@ class CKKSEncoder:
             raise ValueError("plain is not valid for encryption parameters")
         c = cd.cached("compose", lambda: compose.make_compose_consts(cd.key_moduli(), cd.device))
         v = compose.compose(ntt_mod.ntt_inverse(plain.data, cd.ntt_tables), c)
-        vals = _center_accumulate(v, c, 1.0 / plain.scale)
+        lead = plain.data.shape[:-2]
+        vals = _center_accumulate(v.reshape(c.words, -1), c, 1.0 / plain.scale)
+        vals = vals.reshape(lead + (self.n,))
         im = torch.zeros_like(vals)
         dwt.transform_to_rev(vals, im, self._roots)
         sel = self._index_map[:self.slots]
         if complex_out:
-            return torch.complex(vals[sel], im[sel])
-        return vals[sel]
+            return torch.complex(vals[..., sel], im[..., sel])
+        return vals[..., sel]
+
+    def decode_many(self, plains, complex_out: bool = False) -> torch.Tensor:
+        """B plaintexts at one level and scale decoded as one batch ->
+        [B, n/2]; bit for bit [decode(p) for p in plains], which mixed
+        levels or scales fall back to."""
+        plains = list(plains)
+        if not plains:
+            return torch.empty((0, self.slots), device=self.context.device,
+                               dtype=torch.complex128 if complex_out else torch.float64)
+        first = plains[0]
+        if all(p.data is not None and p.is_ntt_form and p.data.dim() == 2
+               and tuple(p.parms_id) == tuple(first.parms_id) and p.scale == first.scale
+               for p in plains):
+            stacked = Plaintext(torch.stack([p.data for p in plains]), first.parms_id,
+                                first.scale)
+            return self.decode(stacked, complex_out)
+        return torch.stack([self.decode(p, complex_out) for p in plains])
 
     encode_device = encode
     decode_device = decode

@@ -12,6 +12,11 @@ from dataclasses import dataclass
 
 @dataclass
 class GlobalConfig:
+    # SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT (on in SEAL's default build):
+    # relinearize, relinearize_rescale and apply_galois refuse a result
+    # whose c1 and above are zero. The check reads the device (one sync
+    # per op, one per batch); off, the ops never wait for the card.
+    throw_on_transparent_ciphertext: bool = True
     # Shoup-quotient key-switch inner product (ops/keyswitch.py, kernel K3):
     # floor(k·2^64/q) is computed once per loaded key and cached on the key
     # object; the contraction then sums lazy Shoup products and ends with a

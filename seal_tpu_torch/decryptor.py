@@ -7,8 +7,12 @@ dot_product_ct_sk :407, invariant_noise_budget :491-560). The phase c0 +
 c1·s + c2·s² + ... is formed in the ciphertext's domain; BFV rounds it
 through the base {t, γ}, BGV converts it exactly to t and undoes the
 correction factor. Every step runs on the context's device, and like SEAL
-it adds no flooding noise. A BFV/BGV result keeps all N coefficients
-(seal_tpu trims the trailing zeros).
+it adds no flooding noise. A BFV/BGV result is trimmed as seal_tpu's is:
+its coefficients up to the last nonzero one, at least one.
+
+`decrypt_many` (seal_tpu's batch API) forms one phase over the stacked
+batch and reads the trim lengths of all members in one host sync; its
+results are bit for bit [decrypt(ct) for ct in cts].
 """
 
 from __future__ import annotations
@@ -48,28 +52,66 @@ class Decryptor:
             acc = ntt_mod.ntt_inverse(acc, cd.ntt_tables)
         return modring.add_poly(acc, ct.poly(0), mc)
 
-    def decrypt(self, ct: Ciphertext) -> Plaintext:
+    def _context_data(self, ct: Ciphertext):
         if ct.size < 2:
             raise ValueError("encrypted is empty")
         cd = self.context.get_context_data(ct.parms_id)
         if cd is None:
             raise ValueError("encrypted is not valid for encryption parameters")
-        if cd.parms.scheme == SchemeType.CKKS:
-            if not ct.is_ntt_form:
-                raise ValueError("encrypted must be in NTT form")
-            return Plaintext(self._phase(ct, cd), tuple(ct.parms_id), ct.scale)
-        if ct.is_ntt_form:
+        ckks = cd.parms.scheme == SchemeType.CKKS
+        if ckks and not ct.is_ntt_form:
+            raise ValueError("encrypted must be in NTT form")
+        if not ckks and ct.is_ntt_form:
             raise ValueError("encrypted cannot be in NTT form")
-        phase = self._phase(ct, cd)
+        return cd
+
+    def decrypt(self, ct: Ciphertext) -> Plaintext:
+        """CKKS: the NTT-form phase (a batch gives a batch). BFV/BGV: the
+        trimmed coefficients mod t of one ciphertext (decrypt_many takes
+        several)."""
+        cd = self._context_data(ct)
+        if cd.parms.scheme == SchemeType.CKKS:
+            return Plaintext(self._phase(ct, cd), tuple(ct.parms_id), ct.scale)
+        if ct.batch_shape:
+            raise ValueError("BFV/BGV decrypt takes one ciphertext; use decrypt_many")
+        return self._exact_plains(self._phase(ct, cd).unsqueeze(0), cd,
+                                  [ct.correction_factor])[0]
+
+    def decrypt_many(self, cts) -> list[Plaintext]:
+        """B ciphertexts at one level and of one size decrypted as one batch
+        (seal_tpu decryptor.py decrypt_many); any other list falls back to
+        sequential decrypt calls. Bit for bit [decrypt(ct) for ct in cts]."""
+        cts = list(cts)
+        if not cts:
+            return []
+        first = cts[0]
+        if any(ct.batch_shape for ct in cts) or not all(
+                tuple(ct.parms_id) == tuple(first.parms_id) and ct.size == first.size
+                and ct.is_ntt_form == first.is_ntt_form for ct in cts):
+            return [self.decrypt(ct) for ct in cts]
+        cd = self._context_data(first)
+        stacked = Ciphertext(torch.stack([ct.data for ct in cts]), first.parms_id,
+                             first.is_ntt_form)
+        phase = self._phase(stacked, cd)
+        if cd.parms.scheme == SchemeType.CKKS:
+            return [Plaintext(p, tuple(ct.parms_id), ct.scale)
+                    for p, ct in zip(phase.unbind(0), cts)]
+        return self._exact_plains(phase, cd, [ct.correction_factor for ct in cts])
+
+    def _exact_plains(self, phase, cd, factors) -> list[Plaintext]:
+        """BFV/BGV phases [B, L, N] -> B trimmed plaintexts mod t, each
+        BGV member's correction factor undone."""
         if cd.parms.scheme == SchemeType.BFV:
-            return Plaintext(rns.decrypt_scale_and_round(phase, cd.rns_tool)[0])
-        vals = rns.decrypt_modt(phase, cd.rns_tool)[0]
-        if ct.correction_factor != 1:
-            t = cd.parms.plain_modulus.value
-            op, qt = shoup_pair([numth.invert_uint_mod(ct.correction_factor, t)], [t],
-                                vals.device)
-            vals = modarith.mul_mod_shoup(vals, op, qt, cd.rns_tool.t_mc.q[0])
-        return Plaintext(vals)
+            vals = rns.decrypt_scale_and_round(phase, cd.rns_tool)[..., 0, :]
+        else:
+            vals = rns.decrypt_modt(phase, cd.rns_tool)[..., 0, :]
+            if any(f != 1 for f in factors):
+                t = cd.parms.plain_modulus.value
+                op, qt = shoup_pair([[numth.invert_uint_mod(f, t)] for f in factors],
+                                    [[t]] * len(factors), vals.device)
+                vals = modarith.mul_mod_shoup(vals, op, qt, cd.rns_tool.t_mc.q[0])
+        counts = _trimmed_counts(vals).tolist()
+        return [Plaintext(v[:c].clone()) for v, c in zip(vals.unbind(0), counts)]
 
     def invariant_noise_budget(self, ct: Ciphertext) -> int:
         """Bits of noise headroom left: log2(Q) minus the bits of the
@@ -83,6 +125,8 @@ class Decryptor:
         scheme = cd.parms.scheme
         if scheme not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
+        if ct.batch_shape:
+            raise ValueError("invariant_noise_budget takes one ciphertext, not a batch")
         if ct.is_ntt_form:
             raise ValueError("encrypted cannot be in NTT form")
         phase = self._phase(ct, cd)
@@ -97,3 +141,10 @@ class Decryptor:
         norm = torch.where(neg, compose.sub_limbs(c.Q, v)[0], v)
         bits = int(compose.bit_length(norm).max())
         return max(0, cd.total_coeff_modulus_bit_count - bits - 1)
+
+
+def _trimmed_counts(vals: torch.Tensor) -> torch.Tensor:
+    """Per row of vals [B, N]: the index of its last nonzero entry plus one,
+    or 1 where the row is zero (seal_tpu decryptor.py _trimmed_plain)."""
+    pos = torch.arange(1, vals.shape[-1] + 1, device=vals.device)
+    return torch.where(vals != 0, pos, 0).amax(-1).clamp(min=1)

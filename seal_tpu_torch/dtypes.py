@@ -5,6 +5,12 @@ words are the uint64 residues (seal_tpu holds a (lo, hi) pair of uint32
 arrays): [L, N] for a CKKS plaintext or a secret key, [<= N] coefficients
 mod t for a BFV/BGV plaintext, [size, L, N] for a ciphertext, [d, 2, L_key,
 N] per key-switching key.
+
+A ciphertext or plaintext may carry leading batch dimensions, [B, size, L,
+N], [B, L, N] or [B, <= N]: B members that share one parms_id, scale, NTT
+form and correction factor, the PyTorch form of seal_tpu's jax.vmap over
+the same ops (bench.py). Every Evaluator op on a batch gives, member for
+member, the bits of the op on that member alone.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ def u64_numpy(t: torch.Tensor) -> np.ndarray:
 class Plaintext:
     """CKKS: an RNS poly [L, N] in NTT form, with its level's parms_id and a
     scale. BFV/BGV: at most N coefficients mod t [<= N], in coefficient
-    form, with no parms_id (SEAL plaintext.h)."""
+    form, with no parms_id (SEAL plaintext.h). A batch has leading
+    dimensions: [*batch, L, N] or [*batch, <= N]."""
 
     def __init__(self, data: torch.Tensor | None = None,
                  parms_id: ParmsId = PARMS_ID_ZERO, scale: float = 1.0):
@@ -63,8 +70,8 @@ class Plaintext:
 
 
 class Ciphertext:
-    """size >= 2 polynomials over the level's tower: [size, L, N]
-    (SEAL ciphertext.h)."""
+    """size >= 2 polynomials over the level's tower: [size, L, N], or
+    [*batch, size, L, N] for a batch (SEAL ciphertext.h)."""
 
     def __init__(self, data: torch.Tensor | None = None,
                  parms_id: ParmsId = PARMS_ID_ZERO, is_ntt_form: bool = False,
@@ -79,19 +86,37 @@ class Ciphertext:
 
     @property
     def size(self) -> int:
-        return 0 if self.data is None else self.data.shape[0]
+        return 0 if self.data is None else self.data.shape[-3]
 
     @property
     def coeff_modulus_size(self) -> int:
-        return 0 if self.data is None else self.data.shape[1]
+        return 0 if self.data is None else self.data.shape[-2]
 
     @property
     def poly_modulus_degree(self) -> int:
-        return 0 if self.data is None else self.data.shape[2]
+        return 0 if self.data is None else self.data.shape[-1]
+
+    @property
+    def batch_shape(self) -> tuple:
+        """The leading batch dimensions; () for one ciphertext."""
+        return () if self.data is None else tuple(self.data.shape[:-3])
 
     def poly(self, j: int) -> torch.Tensor:
-        """The j-th polynomial, [L, N]."""
-        return self.data[j]
+        """The j-th polynomial, [*batch, L, N]."""
+        return self.data[..., j, :, :]
+
+    def polys(self, start: int, stop: int | None = None) -> torch.Tensor:
+        """Polynomials start..stop-1, [*batch, count, L, N]."""
+        return self.data[..., start:stop, :, :]
+
+    def unbind(self) -> list["Ciphertext"]:
+        """The members of a one-dimensional batch, each a view."""
+        return [self._with(d) for d in self.data.unbind(0)]
+
+    def _with(self, data: torch.Tensor) -> "Ciphertext":
+        out = self.copy()
+        out.data = data
+        return out
 
     def to_numpy(self) -> np.ndarray:
         return u64_numpy(self.data)
@@ -102,13 +127,34 @@ class Ciphertext:
 
     def is_transparent(self) -> bool:
         """True when c1 and above are all zero: decryptable without the secret
-        key (SEAL ciphertext.h is_transparent). Reads the device."""
-        return self.size < 2 or not bool(self.data[1:].any())
+        key (SEAL ciphertext.h is_transparent); for a batch, when any member
+        is. Reads the device once."""
+        if self.size < 2:
+            return True
+        upper = self.polys(1).reshape(self.batch_shape + (-1,))
+        return bool((~upper.any(-1)).any())
 
     def __repr__(self):
         return (f"Ciphertext(size={self.size}, L={self.coeff_modulus_size}, "
                 f"n={self.poly_modulus_degree}, ntt={self.is_ntt_form}, "
                 f"scale={self.scale})")
+
+
+def stack_ciphertexts(cts) -> Ciphertext:
+    """One batch [B, size, L, N] of B ciphertexts with the same level,
+    size, NTT form, scale and correction factor (the metadata the batch
+    shares)."""
+    cts = list(cts)
+    if not cts:
+        raise ValueError("cts cannot be empty")
+    first = cts[0]
+    for ct in cts[1:]:
+        if (tuple(ct.parms_id) != tuple(first.parms_id) or ct.size != first.size
+                or ct.is_ntt_form != first.is_ntt_form or ct.scale != first.scale
+                or ct.correction_factor != first.correction_factor):
+            raise ValueError("a batch needs one level, size, NTT form, scale and "
+                             "correction factor")
+    return first._with(torch.stack([ct.data for ct in cts]))
 
 
 class SecretKey:

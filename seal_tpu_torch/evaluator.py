@@ -13,6 +13,19 @@ Shoup-quotient route); the BEHZ base conversions are ops/rns.py, the
 automorphisms gathers (ops/galois.py), and the elementwise passes PyTorch
 ops, on the same device. CKKS ciphertexts are in NTT form, BFV and BGV
 ciphertexts in coefficient form.
+
+Every op takes a batch: ciphertexts with leading dimensions [*batch, size,
+L, N] that share their metadata (dtypes.py), the PyTorch form of bench.py's
+jax.vmap over these ops. The polynomial axis is dimension -3 throughout;
+the batch rides along as more rows of every K1 call and as the batch axis
+of K2/K3, which share one key across it, so a batched op launches each
+kernel as often as one unbatched op does. A plaintext operand may be one
+plaintext, shared by the batch, or a batch of the same shape.
+
+Besides SEAL's ops: add_many, multiply_many and exponentiate, the plain
+mod switches, rescale_to, and an `<op>_inplace` twin of every op that
+mutates in SEAL (evaluator.h), which runs the op and rebinds the result
+onto its first argument, as seal_tpu's do.
 """
 
 from __future__ import annotations
@@ -58,12 +71,15 @@ class Evaluator:
             raise ValueError("encrypted parameters mismatch")
         if a.is_ntt_form != b.is_ntt_form:
             raise ValueError("NTT form mismatch")
+        if a.batch_shape != b.batch_shape:
+            raise ValueError(f"batch shapes {a.batch_shape} and {b.batch_shape} differ")
 
     @staticmethod
     def _check_transparent(ct: Ciphertext):
-        """SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT, on as in SEAL's default
-        build (evaluator.cpp:1152-1158)."""
-        if ct.is_transparent():
+        """SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT (evaluator.cpp:1152-1158),
+        under config.throw_on_transparent_ciphertext like seal_tpu's; off,
+        the op does not read the device."""
+        if config.throw_on_transparent_ciphertext and ct.is_transparent():
             raise ValueError("result ciphertext is transparent")
 
     def _scheme(self) -> SchemeType:
@@ -127,22 +143,32 @@ class Evaluator:
             da = da if e1 == 1 else self._scale_by(da, e1, cd)
             db = db if e2 == 1 else self._scale_by(db, e2, cd)
         mc = cd.mod_consts
-        polys = []
-        for j in range(max(a.size, b.size)):
-            if j < min(a.size, b.size):
-                op = modring.sub_poly if sub else modring.add_poly
-                polys.append(op(da[j], db[j], mc))
-            elif j < a.size:
-                polys.append(da[j])
-            else:
-                polys.append(modring.negate_poly(db[j], mc) if sub else db[j])
+        k = min(a.size, b.size)
+        op = modring.sub_poly if sub else modring.add_poly
+        parts = [op(da[..., :k, :, :], db[..., :k, :, :], mc)]
+        if a.size > k:
+            parts.append(da[..., k:, :, :])
+        elif b.size > k:
+            rest = db[..., k:, :, :]
+            parts.append(modring.negate_poly(rest, mc) if sub else rest)
         out = a.copy()
-        out.data = torch.stack(polys)
+        out.data = torch.cat(parts, dim=-3) if len(parts) > 1 else parts[0]
         out.correction_factor = f0
         return out
 
     def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self._add_sub(a, b, sub=False)
+
+    def add_many(self, cts) -> Ciphertext:
+        """The sum of the ciphertexts, folded left to right as SEAL's
+        evaluator.h add_many (sizes may differ)."""
+        cts = list(cts)
+        if not cts:
+            raise ValueError("cts cannot be empty")
+        out = cts[0]
+        for ct in cts[1:]:
+            out = self.add(out, ct)
+        return out
 
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         return self._add_sub(a, b, sub=True)
@@ -271,7 +297,7 @@ class Evaluator:
         else:
             # row J of the target reduced into every extended row I
             mc = ext["mc"]
-            y = modarith.barrett_reduce_64(t_target[:, None, :], mc.q, mc.ratio1)
+            y = modarith.barrett_reduce_64(t_target.unsqueeze(-2), mc.q, mc.ratio1)
             dig_of = list(range(L))
         if ntt_target:
             return hyb.diag_skip_ntt(y, target, cd.ntt_tables, self._special_tables(), dig_of)
@@ -309,7 +335,7 @@ class Evaluator:
         contraction whose lazy sum fits 64 bits, the Shoup-quotient route
         (K3) replaces the 128-bit one (K2): the same bits."""
         ext = self._ext(self._cd(ct).coeff_modulus_size)
-        d = t_op.shape[0]
+        d = t_op.shape[-3]
         keys = keys[:d]
         if ext["gather"] is not None:
             keys = keys.index_select(2, ext["gather"])
@@ -368,9 +394,9 @@ class Evaluator:
             cur, cur.poly(size - 1), relin_keys.key(size - 1),
             self._key_quot(relin_keys, relin_keys.get_index(size - 1))))
         mc = self._cd(cur).mod_consts
-        head = modring.add_poly(cur.data[:2], delta.data, mc)
+        head = modring.add_poly(cur.polys(0, 2), delta.data, mc)
         out = cur.copy()
-        out.data = torch.cat([head, cur.data[2:size - 1]])
+        out.data = torch.cat([head, cur.polys(2, size - 1)], dim=-3)
         return out
 
     def relinearize_rescale(self, ct: Ciphertext, relin_keys: RelinKeys) -> Ciphertext:
@@ -408,8 +434,9 @@ class Evaluator:
         spec_tables = key_cd.cached(
             ("fused_tables", L),
             lambda: key_cd.ntt_tables.rows([L - 1] + list(range(L_key - alpha, L_key))))
-        lift = modarith.mul_mod_shoup(cur.data[:2], *c["lift"], mc.q)
-        rows = torch.cat([modarith.add_mod(prod[:, :L], lift, mc.q), prod[:, L:]], dim=1)
+        lift = modarith.mul_mod_shoup(cur.polys(0, 2), *c["lift"], mc.q)
+        rows = torch.cat([modarith.add_mod(prod[..., :L, :], lift, mc.q), prod[..., L:, :]],
+                         dim=-2)
         out = Ciphertext(
             hyb.mod_down(rows, c["tail"], next_cd.ntt_tables, spec_tables,
                          next_cd.mod_consts),
@@ -433,7 +460,7 @@ class Evaluator:
         scheme = cd.parms.scheme
         factor = ct.correction_factor
         if scheme == SchemeType.CKKS:
-            data = ct.data[:, :-1]
+            data = ct.data[..., :-1, :]
         elif scheme == SchemeType.BFV:
             L = cd.coeff_modulus_size
             data = rns.divide_and_round_q_last(ct.data, cd.rescale_consts, next_cd.mod_consts,
@@ -443,18 +470,41 @@ class Evaluator:
             factor = factor * cd.rns_tool_host.inv_q_last_mod_t % cd.parms.plain_modulus.value
         return Ciphertext(data, tuple(next_cd.parms_id), ct.is_ntt_form, ct.scale, factor)
 
-    def mod_switch_to(self, ct: Ciphertext, parms_id) -> Ciphertext:
-        """mod_switch_to_next until the ciphertext is at parms_id's level."""
+    def _check_switch_target(self, cur_parms_id, parms_id) -> tuple:
+        """parms_id as a tuple, once it names a level at or below the
+        current one (evaluator.cpp mod_switch_to_inplace)."""
         target = tuple(parms_id)
-        cur_cd, tgt_cd = self.context.get_context_data(ct.parms_id), \
+        cur_cd, tgt_cd = self.context.get_context_data(cur_parms_id), \
             self.context.get_context_data(target)
         if cur_cd is None or tgt_cd is None:
             raise ValueError("parms_id is not valid for encryption parameters")
         if cur_cd.chain_index < tgt_cd.chain_index:
             raise ValueError("cannot switch to higher level modulus")
+        return target
+
+    def mod_switch_to(self, ct: Ciphertext, parms_id) -> Ciphertext:
+        """mod_switch_to_next until the ciphertext is at parms_id's level."""
+        target = self._check_switch_target(ct.parms_id, parms_id)
         while tuple(ct.parms_id) != target:
             ct = self.mod_switch_to_next(ct)
         return ct
+
+    def mod_switch_plain_to_next(self, plain: Plaintext) -> Plaintext:
+        """An NTT-form plaintext at the next level: its last RNS row dropped,
+        no scaling (evaluator.cpp mod_switch_to_next of a Plaintext)."""
+        if not plain.is_ntt_form or plain.data is None:
+            raise ValueError("plain is not in NTT form")
+        cd = self.context.get_context_data(plain.parms_id)
+        if cd.next_context_data is None:
+            raise ValueError("end of modulus switching chain reached")
+        return Plaintext(plain.data[..., :-1, :], tuple(cd.next_context_data.parms_id),
+                         plain.scale)
+
+    def mod_switch_plain_to(self, plain: Plaintext, parms_id) -> Plaintext:
+        target = self._check_switch_target(plain.parms_id, parms_id)
+        while tuple(plain.parms_id) != target:
+            plain = self.mod_switch_plain_to_next(plain)
+        return plain
 
     def rescale_to_next(self, ct: Ciphertext) -> Ciphertext:
         """CKKS rescaling by the last prime (evaluator.cpp:1441-1479)."""
@@ -470,6 +520,13 @@ class Evaluator:
         return Ciphertext(data, tuple(next_cd.parms_id), ct.is_ntt_form,
                           ct.scale / cd.key_moduli()[-1], ct.correction_factor)
 
+    def rescale_to(self, ct: Ciphertext, parms_id) -> Ciphertext:
+        """rescale_to_next until the ciphertext is at parms_id's level."""
+        target = self._check_switch_target(ct.parms_id, parms_id)
+        while tuple(ct.parms_id) != target:
+            ct = self.rescale_to_next(ct)
+        return ct
+
     # -- plaintext operations ----------------------------------------------------
 
     def add_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
@@ -483,6 +540,7 @@ class Evaluator:
         and scale, BFV its Δ-scaled embedding, BGV the coefficients times
         the correction factor (evaluator.cpp:1692-1790)."""
         cd = self._cd(ct)
+        _check_plain_batch(ct, plain)
         if cd.parms.scheme == SchemeType.CKKS:
             if not plain.is_ntt_form or plain.data is None:
                 raise ValueError("plain must be in NTT form")
@@ -504,7 +562,8 @@ class Evaluator:
                 rows = lifted_plain_rows(m, cd)
         op = modring.sub_poly if sub else modring.add_poly
         out = ct.copy()
-        out.data = torch.cat([op(ct.data[:1], rows, cd.mod_consts), ct.data[1:]])
+        out.data = torch.cat([op(ct.polys(0, 1), rows.unsqueeze(-3), cd.mod_consts),
+                              ct.polys(1)], dim=-3)
         return out
 
     def multiply_plain(self, ct: Ciphertext, plain: Plaintext) -> Ciphertext:
@@ -514,24 +573,26 @@ class Evaluator:
         the plaintext lifted to q (its upper half of t to the negatives),
         through the NTT (multiply_plain_normal, evaluator.cpp:1858-1992)."""
         cd = self._cd(ct)
+        _check_plain_batch(ct, plain)
         if ct.is_ntt_form and plain.is_ntt_form:
             if tuple(plain.parms_id) != tuple(ct.parms_id):
                 raise ValueError("encrypted_ntt and plain_ntt parameter mismatch")
             out = ct.copy()
-            out.data = modring.dyadic_product(ct.data, plain.data, cd.mod_consts)
+            out.data = modring.dyadic_product(ct.data, plain.data.unsqueeze(-3), cd.mod_consts)
             out.scale = ct.scale * plain.scale
             _check_scale(out.scale, cd)
             return out
         if ct.is_ntt_form or plain.is_ntt_form:
             raise ValueError("NTT form mismatch")
         m = plain_coeffs(plain, cd)
-        if not bool(m.any()):
+        if not bool(m.any(-1).all()):
             raise ValueError("plain cannot be zero")
         tables = cd.ntt_tables
         plain_ntt = ntt_mod.ntt_forward(plain_to_rns_rows(m, cd), tables)
         out = ct.copy()
         out.data = ntt_mod.ntt_inverse(modring.dyadic_product(
-            ntt_mod.ntt_forward(ct.data, tables), plain_ntt, cd.mod_consts), tables)
+            ntt_mod.ntt_forward(ct.data, tables), plain_ntt.unsqueeze(-3), cd.mod_consts),
+            tables)
         return out
 
     # -- NTT transforms -----------------------------------------------------------
@@ -579,13 +640,13 @@ class Evaluator:
             c0 = gt.apply_galois_ntt(ct.poly(0), galois_elt)
             c1 = gt.apply_galois_ntt(ct.poly(1), galois_elt)
         else:
-            c0, c1 = gt.apply_galois(ct.data[:2], galois_elt, cd.mod_consts)
+            c0, c1 = gt.apply_galois(ct.data, galois_elt, cd.mod_consts).unbind(-3)
         delta = self._switch_key_tail(ct, self._switch_key_prod(
             ct, c1, galois_keys.key(galois_elt),
             self._key_quot(galois_keys, galois_keys.get_index(galois_elt))))
         out = ct.copy()
         out.data = torch.stack([modring.add_poly(c0, delta.poly(0), cd.mod_consts),
-                                delta.poly(1)])
+                                delta.poly(1)], dim=-3)
         self._check_transparent(out)
         return out
 
@@ -638,16 +699,19 @@ class Evaluator:
                              galois_keys: GaloisKeys) -> list[Ciphertext]:
         """Hoisted rotations (Halevi-Shoup), seal_tpu's fast path beside
         SEAL's one-by-one rotations: c1 is decomposed and lifted once, and
-        each rotation is a key inner product on that shared operand. Decrypts
-        to the same values as rotate_vector; the bits differ from it only in
-        the special-prime rounding, and are seal_tpu's on both of its
-        branches:
+        each rotation is a key inner product on that shared operand. Steps
+        are CKKS slot steps, or BFV/BGV row steps (0 swaps nothing and
+        returns the input). Decrypts to the same values as rotate_vector /
+        rotate_rows; the bits differ from those only in the special-prime
+        rounding, and are seal_tpu's on both of its branches:
         * up to 16 nonzero steps: per step the operand is contracted with the
-          key permuted by the inverse automorphism, and the output is
-          permuted (seal_tpu's _hoisted_one);
+          key permuted by the inverse NTT-domain automorphism, and the output
+          is permuted: in the NTT domain (CKKS) or, after the tail brought it
+          to coefficient form, by the coefficient automorphism (BFV, BGV)
+          (seal_tpu's _hoisted_one);
         * more: per step the operand is permuted and contracted with the key
-          as it is (seal_tpu's lax.scan body, here a loop)."""
-        self._require(SchemeType.CKKS)
+          as it is, and c0 is permuted in its own domain (seal_tpu's
+          lax.scan body, here a loop)."""
         cd = self._cd(ct)
         _check_rotatable(ct, cd.parms.scheme)
         gt = cd.galois_tool
@@ -658,6 +722,12 @@ class Evaluator:
                 raise ValueError(f"Galois key for step {s} not present")
         t_op = self._switch_key_decompose(ct, ct.poly(1))
         c0 = ct.poly(0)
+
+        def permuted(x, elt):
+            if ct.is_ntt_form:
+                return gt.apply_galois_ntt(x, elt)
+            return gt.apply_galois(x, elt, mc)
+
         live = [(s, e) for s, e in zip(steps, elts) if s != 0]
         by_step = {}
         for s, elt in live:
@@ -665,15 +735,14 @@ class Evaluator:
                 delta = self._switch_key_inner(
                     ct, t_op, self._permuted_keys(galois_keys, elt, gt),
                     self._permuted_key_quot(galois_keys, elt, gt))
-                data = gt.apply_galois_ntt(torch.stack(
-                    [modring.add_poly(c0, delta.poly(0), mc), delta.poly(1)]), elt)
+                data = permuted(torch.stack(
+                    [modring.add_poly(c0, delta.poly(0), mc), delta.poly(1)], dim=-3), elt)
             else:
-                perm = gt.ntt_index(elt)
                 delta = self._switch_key_inner(
-                    ct, t_op.index_select(-1, perm), galois_keys.key(elt),
+                    ct, t_op.index_select(-1, gt.ntt_index(elt)), galois_keys.key(elt),
                     self._key_quot(galois_keys, galois_keys.get_index(elt)))
-                data = torch.stack([modring.add_poly(c0.index_select(-1, perm),
-                                                     delta.poly(0), mc), delta.poly(1)])
+                data = torch.stack([modring.add_poly(permuted(c0, elt), delta.poly(0), mc),
+                                    delta.poly(1)], dim=-3)
             out = ct.copy()
             out.data = data
             by_step[s] = out
@@ -692,6 +761,75 @@ class Evaluator:
             cache[elt] = hit
         return hit[1]
 
+    # -- products of many ----------------------------------------------------------
+
+    def multiply_many(self, cts, relin_keys: RelinKeys) -> Ciphertext:
+        """The product of the ciphertexts by a binary tree of multiply +
+        relinearize, pairs taken left to right and an odd last one carried
+        up (evaluator.cpp multiply_many, seal_tpu's tree)."""
+        layer = list(cts)
+        if not layer:
+            raise ValueError("encrypteds cannot be empty")
+        while len(layer) > 1:
+            nxt = [self.relinearize(self.multiply(layer[i], layer[i + 1]), relin_keys)
+                   for i in range(0, len(layer) - 1, 2)]
+            if len(layer) % 2:
+                nxt.append(layer[-1])
+            layer = nxt
+        return layer[0]
+
+    def exponentiate(self, ct: Ciphertext, power: int, relin_keys: RelinKeys) -> Ciphertext:
+        """ct^power as multiply_many of `power` copies."""
+        if power < 1:
+            raise ValueError("exponent cannot be 0")
+        if power == 1:
+            return ct.copy()
+        return self.multiply_many([ct] * power, relin_keys)
+
+
+# The `*_inplace` twin of every op that SEAL's evaluator.h declares in place
+# (seal_tpu evaluator.py :1359-1397): the op runs as it is, and its result is
+# rebound onto the first argument, which keeps its identity.
+_INPLACE_METHODS = (
+    "negate", "add", "sub", "multiply", "square", "relinearize",
+    "mod_switch_to_next", "mod_switch_to", "rescale_to_next", "rescale_to",
+    "add_plain", "sub_plain", "multiply_plain",
+    "transform_to_ntt", "transform_from_ntt",
+    "apply_galois", "rotate_rows", "rotate_columns", "rotate_vector",
+    "complex_conjugate", "exponentiate",
+)
+
+
+def _make_inplace(name: str):
+    def method(self, ct, *args, **kwargs):
+        out = getattr(self, name)(ct, *args, **kwargs)
+        if out is not ct:
+            # an op that returns its argument (mod_switch_to at the current
+            # level) leaves it as it is
+            ct.__dict__.clear()
+            ct.__dict__.update(out.__dict__)
+        return ct
+
+    method.__name__ = name + "_inplace"
+    method.__qualname__ = f"Evaluator.{name}_inplace"
+    method.__doc__ = f"`{name}` with the result rebound onto its first argument."
+    return method
+
+
+for _name in _INPLACE_METHODS:
+    setattr(Evaluator, _name + "_inplace", _make_inplace(_name))
+del _name
+
+
+def _check_plain_batch(ct: Ciphertext, plain: Plaintext):
+    """A plaintext operand is one plaintext or a batch of ct's shape."""
+    if plain.data is None:
+        return
+    batch = tuple(plain.data.shape[:-2] if plain.is_ntt_form else plain.data.shape[:-1])
+    if batch and batch != ct.batch_shape:
+        raise ValueError(f"plain batch {batch} does not match the ciphertexts' "
+                         f"{ct.batch_shape}")
+
 
 def _check_rotatable(ct: Ciphertext, scheme: SchemeType):
     if ct.size != 2:
@@ -704,32 +842,35 @@ def _check_rotatable(ct: Ciphertext, scheme: SchemeType):
 
 def _convolve(xs, ys, mc):
     """out[k] = Σ_{i+j=k} xs[i]·ys[j]: the dyadic product of two NTT-form
-    ciphertexts [sa, L, N] and [sb, L, N] -> [sa + sb - 1, L, N]."""
-    out = [None] * (xs.shape[0] + ys.shape[0] - 1)
-    for i in range(xs.shape[0]):
-        for j in range(ys.shape[0]):
-            p = modring.dyadic_product(xs[i], ys[j], mc)
+    ciphertexts [..., sa, L, N] and [..., sb, L, N] -> [..., sa + sb - 1, L, N]."""
+    sa, sb = xs.shape[-3], ys.shape[-3]
+    out = [None] * (sa + sb - 1)
+    for i in range(sa):
+        for j in range(sb):
+            p = modring.dyadic_product(xs[..., i, :, :], ys[..., j, :, :], mc)
             out[i + j] = p if out[i + j] is None else modring.add_poly(out[i + j], p, mc)
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 def _square_dyadic(xs, mc):
     """(x0, x1) NTT-form -> (x0², 2·x0·x1, x1²), the same bits as
     _convolve(xs, xs) with one product fewer."""
-    x01 = modring.dyadic_product(xs[0], xs[1], mc)
-    return torch.stack([modring.dyadic_product(xs[0], xs[0], mc),
+    x0, x1 = xs.unbind(-3)
+    x01 = modring.dyadic_product(x0, x1, mc)
+    return torch.stack([modring.dyadic_product(x0, x0, mc),
                         modring.add_poly(x01, x01, mc),
-                        modring.dyadic_product(xs[1], xs[1], mc)])
+                        modring.dyadic_product(x1, x1, mc)], dim=-3)
 
 
 def _joined(a: Ciphertext, b):
     """The polynomials of a and b (a alone where b is None), stacked."""
-    return a.data if b is None else torch.cat([a.data, b.data])
+    return a.data if b is None else torch.cat([a.data, b.data], dim=-3)
 
 
 def _split(x, size_a: int):
     """_joined's inverse: (a's part, b's part or None)."""
-    return x[:size_a], (x[size_a:] if x.shape[0] > size_a else None)
+    return (x[..., :size_a, :, :],
+            x[..., size_a:, :, :] if x.shape[-3] > size_a else None)
 
 
 def _dyadic(xs, ys, mc):

@@ -30,10 +30,10 @@ def u64_to_tensor(arr, context: SEALContext) -> torch.Tensor:
 def ciphertext_from_numpy(context: SEALContext, data, parms_id, scale: float,
                           is_ntt_form: bool = True,
                           correction_factor: int = 1) -> Ciphertext:
-    """data: uint64 [size, L, N]."""
+    """data: uint64 [size, L, N], or [*batch, size, L, N] for a batch."""
     t = u64_to_tensor(data, context)
-    if t.dim() != 3:
-        raise ValueError(f"ciphertext data must be [size, L, N], got {tuple(t.shape)}")
+    if t.dim() < 3:
+        raise ValueError(f"ciphertext data must be [*batch, size, L, N], got {tuple(t.shape)}")
     return Ciphertext(t, tuple(int(w) for w in parms_id), is_ntt_form,
                       float(scale), int(correction_factor))
 

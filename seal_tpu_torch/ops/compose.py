@@ -82,8 +82,14 @@ def sub_limbs(a: torch.Tensor, b: torch.Tensor):
 
 
 def compose(x: torch.Tensor, c: ComposeConsts) -> torch.Tensor:
-    """Residues x [L, N] (each row below its prime) -> the integers mod Q
-    as limbs [W + 2, N], least significant first, each in [0, 2^32)."""
+    """Residues x [..., L, N] (each row below its prime) -> the integers
+    mod Q as limbs [W + 2, ..., N], least significant first, each in
+    [0, 2^32). Each coefficient composes on its own, so a batch gives each
+    member's limbs."""
+    lead = x.shape[:-2]
+    if lead:
+        flat = x.movedim(-2, 0).reshape(x.shape[-2], -1)
+        return compose(flat, c).reshape((c.words,) + lead + x.shape[-1:])
     L, n = x.shape
     y = modarith.mul_mod_shoup(x, *c.inv_punct, c.q)                  # [L, N]
     lo, hi = modarith.mul_wide(y.unsqueeze(1), c.punct)               # [L, W, N]

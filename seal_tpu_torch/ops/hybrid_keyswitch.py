@@ -132,28 +132,33 @@ def shoup_dot(w, hat_op, hat_qt, mc: ModConsts):
 
 
 def decompose(t_target, digits, per_digit, ext_mc: ModConsts):
-    r"""Coefficient-domain target [L, N] -> digit rows [d, I, N] (before
-    the NTT): y_j[i] = Σ_{t∈T_j} (t_t·[\hat{Q}'_{j,t}^{-1}]_{q_t} mod q_t)·
-    (\hat{Q}'_{j,t} mod q_i)."""
+    r"""Coefficient-domain target [..., L, N] -> digit rows [..., d, I, N]
+    (before the NTT): y_j[i] = Σ_{t∈T_j} (t_t·[\hat{Q}'_{j,t}^{-1}]_{q_t}
+    mod q_t)·(\hat{Q}'_{j,t} mod q_i)."""
     out = []
     for rows, (inv_op, inv_qt, q_dig, hat_op, hat_qt) in zip(digits, per_digit):
-        w = modarith.mul_mod_shoup(t_target[rows.start:rows.stop], inv_op, inv_qt, q_dig)
+        w = modarith.mul_mod_shoup(t_target[..., rows.start:rows.stop, :], inv_op, inv_qt,
+                                   q_dig)
         out.append(shoup_dot(w, hat_op, hat_qt, ext_mc))
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 def diag_skip_ntt(rows, target, lvl_tables: ntt_mod.NTTTables,
                   special_tables: ntt_mod.NTTTables, dig_of: list[int]):
-    """Forward NTT of the decomposed rows [d, L+α, N] with the CKKS diagonal
-    skip: row i of digit dig_of[i] equals the coefficient-domain target row
-    i exactly, so the NTT-form `target` [L, N] row is substituted instead of
-    transformed. dig_of[i] = i with d = L is SEAL's α = 1 shortcut
-    (evaluator.cpp:2488-2496); dig_of[i] = i // α is the hybrid digit map."""
-    d, _, n = rows.shape
-    L = target.shape[0]
+    """Forward NTT of the decomposed rows [..., d, L+α, N] with the CKKS
+    diagonal skip: row i of digit dig_of[i] equals the coefficient-domain
+    target row i exactly, so the NTT-form `target` [..., L, N] row is
+    substituted instead of transformed. dig_of[i] = i with d = L is SEAL's
+    α = 1 shortcut (evaluator.cpp:2488-2496); dig_of[i] = i // α is the
+    hybrid digit map. The leading dimensions of a batch ride along as more
+    rows: one K1 launch for the special rows and one for the level rows,
+    whatever the batch."""
+    d, _, n = rows.shape[-3:]
+    lead = rows.shape[:-3]
+    L = target.shape[-2]
     dev = rows.device
     out = torch.empty_like(rows)
-    out[:, L:] = ntt_mod.ntt_forward(rows[:, L:], special_tables)
+    out[..., L:, :] = ntt_mod.ntt_forward(rows[..., L:, :], special_tables)
     eye = torch.tensor([[dig_of[i] == j for i in range(L)] for j in range(d)],
                        device=dev)[:, :, None]
     if d > 1:
@@ -161,14 +166,15 @@ def diag_skip_ntt(rows, target, lvl_tables: ntt_mod.NTTTables,
         jidx = torch.tensor([[j for j in range(d) if j != dig_of[i]]
                              for i in range(L)], device=dev).T[:, :, None]
         body = ntt_mod.ntt_forward(
-            torch.gather(rows[:, :L], 0, jidx.expand(-1, -1, n)), lvl_tables)
+            torch.gather(rows[..., :L, :], -3, jidx.expand(lead + (d - 1, L, n))),
+            lvl_tables)
         kidx = torch.tensor([[j if j < dig_of[i] else max(j - 1, 0)
                               for i in range(L)] for j in range(d)],
                             device=dev)[:, :, None]
-        lvl = torch.gather(body, 0, kidx.expand(-1, -1, n))
+        lvl = torch.gather(body, -3, kidx.expand(lead + (d, L, n)))
     else:
-        lvl = torch.zeros_like(rows[:, :L])
-    out[:, :L] = torch.where(eye, target[None], lvl)
+        lvl = torch.zeros_like(rows[..., :L, :])
+    out[..., :L, :] = torch.where(eye, target.unsqueeze(-3), lvl)
     return out
 
 

@@ -6,6 +6,12 @@ extended tower k [J, 2, I, N]:
 
     out[c, i, :] = (Σ_j t[j, i, :] · k[j, c, i, :]) mod q_i
 
+A batch of targets t [*batch, J, I, N] that share the key gives out
+[*batch, 2, I, N], each member the bits of its own call (the key stays
+unbatched, as it does under bench.py's vmap). The kernels fetch each key
+word from device memory about once per call: the blocks of all members
+that read one range of the key run side by side and share it through L2.
+
 * `keyswitch_inner` (kernel K2), the port of seal_tpu/ops/keyswitch_pallas.py
   keyswitch_inner_pallas: a 128-bit lazy sum and one Barrett-128 reduction
   (SEAL evaluator.cpp:2517-2547).
@@ -23,6 +29,7 @@ a CUDA tensor to the kernel (or raises).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -44,9 +51,11 @@ def pack_mod_consts(moduli, device) -> torch.Tensor:
 
 
 def _check(t_op, keys, consts):
-    if t_op.dim() != 3 or keys.dim() != 4:
-        raise ValueError("keyswitch_inner takes t [J, I, N] and keys [J, 2, I, N]")
-    J, I, n = t_op.shape
+    """(batch shape, J, I, N) of t [*batch, J, I, N] against keys [J, 2, I, N]
+    and consts [I, 3]."""
+    if t_op.dim() < 3 or keys.dim() != 4:
+        raise ValueError("keyswitch_inner takes t [*batch, J, I, N] and keys [J, 2, I, N]")
+    J, I, n = t_op.shape[-3:]
     if tuple(keys.shape) != (J, 2, I, n) or tuple(consts.shape) != (I, 3):
         raise ValueError(
             f"shapes t {tuple(t_op.shape)}, keys {tuple(keys.shape)}, "
@@ -58,7 +67,7 @@ def _check(t_op, keys, consts):
             raise TypeError(f"keyswitch_inner takes int64, got {a.dtype}")
         if a.device != t_op.device:
             raise ValueError("keyswitch_inner inputs lie on different devices")
-    return J, I, n
+    return tuple(t_op.shape[:-3]), J, I, n
 
 
 def keyswitch_inner_plain(t_op, keys, consts):
@@ -66,38 +75,48 @@ def keyswitch_inner_plain(t_op, keys, consts):
     q, r0, r1 = (consts[:, k:k + 1] for k in range(3))     # [I, 1]
     out = []
     for c in range(2):
-        acc = (torch.zeros_like(t_op[0]), torch.zeros_like(t_op[0]))
-        for j in range(t_op.shape[0]):
-            acc = modarith.mul_add_128(acc, t_op[j], keys[j, c])
+        acc = (torch.zeros_like(t_op[..., 0, :, :]), torch.zeros_like(t_op[..., 0, :, :]))
+        for j in range(t_op.shape[-3]):
+            acc = modarith.mul_add_128(acc, t_op[..., j, :, :], keys[j, c])
         out.append(modarith.barrett_reduce_128(acc[0], acc[1], q, r0, r1))
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"sealtorch_keyswitch_inner": [_P, _P, _P, _P, _I, _I, _I, _P],
-               "sealtorch_keyswitch_inner_shoup": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {"sealtorch_keyswitch_inner": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "sealtorch_keyswitch_inner_shoup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 
 
-def keyswitch_inner_cuda(t_op, keys, consts):
-    J, I, n = _check(t_op, keys, consts)
+def _kernel_batch(t_op, others, n) -> int:
+    """Check the operands for the kernel; returns B, the members of t's
+    batch (1 for an unbatched t)."""
     if t_op.device.type != "cuda":
         raise ValueError(f"the key-switch kernel needs CUDA tensors, got {t_op.device}")
-    if not (t_op.is_contiguous() and keys.is_contiguous() and consts.is_contiguous()):
+    if not all(a.is_contiguous() for a in (t_op, *others)):
         raise ValueError("the key-switch kernel needs contiguous inputs")
     if n & (n - 1):
         raise ValueError(f"N = {n} is not a power of two")
+    B = math.prod(t_op.shape[:-3])
+    if B < 1:
+        raise ValueError("keyswitch_inner needs at least one target")
+    return B
+
+
+def keyswitch_inner_cuda(t_op, keys, consts):
+    lead, J, I, n = _check(t_op, keys, consts)
+    B = _kernel_batch(t_op, (keys, consts), n)
     lib = cuda.library("keyswitch", _SIGNATURES)
-    out = torch.empty((2, I, n), dtype=torch.int64, device=t_op.device)
+    out = torch.empty(lead + (2, I, n), dtype=torch.int64, device=t_op.device)
     cuda.check(lib.sealtorch_keyswitch_inner(
         t_op.data_ptr(), keys.data_ptr(), consts.data_ptr(), out.data_ptr(),
-        J, I, n.bit_length() - 1, cuda.stream_ptr(t_op)), "keyswitch_inner kernel")
+        B, J, I, n.bit_length() - 1, cuda.stream_ptr(t_op)), "keyswitch_inner kernel")
     cuda.launches["keyswitch_inner"] += 1
     return out
 
 
 def keyswitch_inner(t_op, keys, consts):
-    """out [2, I, N] fully reduced to [0, q_i); inputs below 2^61."""
+    """out [*batch, 2, I, N] fully reduced to [0, q_i); inputs below 2^61."""
     if t_op.device.type == "cuda":
         return keyswitch_inner_cuda(
             t_op.contiguous(), keys.contiguous(), consts.contiguous())
@@ -117,52 +136,49 @@ def key_quotients(keys, moduli) -> torch.Tensor:
 
 
 def _check_shoup(t_op, keys, keys_quot, consts, max_q):
-    J, I, n = _check(t_op, keys, consts)
+    lead, J, I, n = _check(t_op, keys, consts)
     if keys_quot.shape != keys.shape or keys_quot.dtype != torch.int64 \
             or keys_quot.device != t_op.device:
         raise ValueError(f"key quotients {tuple(keys_quot.shape)} {keys_quot.dtype} on "
                          f"{keys_quot.device} do not match the keys")
     if 2 * J * max_q >= 1 << 64:
         raise ValueError(f"J = {J}: the lazy Shoup sum needs 2·J·max q < 2^64")
-    return J, I, n
+    return lead, J, I, n
 
 
 def keyswitch_inner_shoup_plain(t_op, keys, keys_quot, consts, max_q):
     _check_shoup(t_op, keys, keys_quot, consts, max_q)
     q = consts[:, :1]                                       # [I, 1]
+    J = t_op.shape[-3]
     out = []
     for c in range(2):
         acc = None
-        for j in range(t_op.shape[0]):
-            term = modarith.mul_mod_shoup_lazy(t_op[j], keys[j, c], keys_quot[j, c], q)
+        for j in range(J):
+            term = modarith.mul_mod_shoup_lazy(t_op[..., j, :, :], keys[j, c],
+                                               keys_quot[j, c], q)
             acc = term if acc is None else acc + term
         # the sum and q·2^s may pass 2^63: compare unsigned, as the kernel does
-        for s in range((2 * t_op.shape[0] - 1).bit_length() - 1, -1, -1):
+        for s in range((2 * J - 1).bit_length() - 1, -1, -1):
             acc = modarith.cond_sub_u64(acc, q << s)
         out.append(acc)
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 def keyswitch_inner_shoup_cuda(t_op, keys, keys_quot, consts, max_q):
-    J, I, n = _check_shoup(t_op, keys, keys_quot, consts, max_q)
-    if t_op.device.type != "cuda":
-        raise ValueError(f"the key-switch kernel needs CUDA tensors, got {t_op.device}")
-    if not all(a.is_contiguous() for a in (t_op, keys, keys_quot, consts)):
-        raise ValueError("the key-switch kernel needs contiguous inputs")
-    if n & (n - 1):
-        raise ValueError(f"N = {n} is not a power of two")
+    lead, J, I, n = _check_shoup(t_op, keys, keys_quot, consts, max_q)
+    B = _kernel_batch(t_op, (keys, keys_quot, consts), n)
     lib = cuda.library("keyswitch", _SIGNATURES)
-    out = torch.empty((2, I, n), dtype=torch.int64, device=t_op.device)
+    out = torch.empty(lead + (2, I, n), dtype=torch.int64, device=t_op.device)
     cuda.check(lib.sealtorch_keyswitch_inner_shoup(
         t_op.data_ptr(), keys.data_ptr(), keys_quot.data_ptr(), consts.data_ptr(),
-        out.data_ptr(), J, I, n.bit_length() - 1, cuda.stream_ptr(t_op)),
+        out.data_ptr(), B, J, I, n.bit_length() - 1, cuda.stream_ptr(t_op)),
         "keyswitch_inner_shoup kernel")
     cuda.launches["keyswitch_inner_shoup"] += 1
     return out
 
 
 def keyswitch_inner_shoup(t_op, keys, keys_quot, consts, max_q: int):
-    """out [2, I, N] fully reduced to [0, q_i), the same bits as
+    """out [*batch, 2, I, N] fully reduced to [0, q_i), the same bits as
     keyswitch_inner; t below 2^64, keys below q with their quotients.
     max_q is the largest modulus of consts as a host int (reading it from a
     CUDA tensor would wait for the card); the call is refused unless

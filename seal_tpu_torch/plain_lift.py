@@ -4,7 +4,9 @@ A coefficient-form plaintext (coefficients mod t) enters Q three ways:
 Δ-scaled (BFV's encryption and plain add/sub, SEAL util/scalingvariant.cpp),
 lifted as it is (BGV's), or lifted with its upper half of t sent to the
 negatives (multiply_plain, both schemes). The Encryptor and the Evaluator
-both call these; every step runs on the context's device.
+both call these; every step runs on the context's device. A batch of
+plaintexts [*batch, <= N] gives coefficients [*batch, N] and rows [*batch,
+L, N].
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ from seal_tpu_torch.ops import modarith
 
 
 def plain_coeffs(plain: Plaintext, cd: ContextData) -> torch.Tensor:
-    """A coefficient-form plaintext as [N] int64 on the context's device."""
+    """A coefficient-form plaintext as [*batch, N] int64 on the context's
+    device."""
     if plain.is_ntt_form:
         raise ValueError("plain cannot be in NTT form")
     n = cd.parms.poly_modulus_degree
-    data = plain.data.reshape(-1)
-    if data.numel() > n:
+    data = plain.data
+    if data.dim() == 0:
+        data = data.reshape(1)
+    if data.shape[-1] > n:
         raise ValueError("plain is not valid for encryption parameters")
-    out = torch.zeros(n, dtype=torch.int64, device=cd.device)
-    out[:data.numel()] = data
+    out = torch.zeros(data.shape[:-1] + (n,), dtype=torch.int64, device=cd.device)
+    out[..., :data.shape[-1]] = data
     return out
 
 
@@ -34,6 +39,7 @@ def scaled_plain_rows(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     below t: [L, N] (scalingvariant.cpp:69-113, seal_tpu's
     _scaled_plain_rows)."""
     c, mc = cd.plain_consts, cd.mod_consts
+    m = m.unsqueeze(-2)
     t_mc = c["t_mc"]
     lo, hi = modarith.mul_wide(m, c["q_mod_t"][0])
     lo, carry = modarith.add_carry(lo, c["threshold"][0])
@@ -46,7 +52,7 @@ def scaled_plain_rows(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
 def lifted_plain_rows(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     """Coefficients m [N] below t as residues [L, N], without scaling."""
     mc = cd.mod_consts
-    return modarith.barrett_reduce_64(m, mc.q, mc.ratio1)
+    return modarith.barrett_reduce_64(m.unsqueeze(-2), mc.q, mc.ratio1)
 
 
 def plain_to_rns_rows(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
@@ -55,5 +61,5 @@ def plain_to_rns_rows(m: torch.Tensor, cd: ContextData) -> torch.Tensor:
     seal_tpu's _plain_to_rns_rows)."""
     mc, c = cd.mod_consts, cd.plain_consts
     rows = lifted_plain_rows(m, cd)
-    return torch.where(m >= c["threshold"][0],
+    return torch.where(m.unsqueeze(-2) >= c["threshold"][0],
                        modarith.add_mod(rows, c["upper_half_increment"], mc.q), rows)

@@ -16,7 +16,11 @@ read the stream of randomgen.py on the host, in SEAL's exact order:
 
 Each sampled polynomial moves to the context's device once (the ternary
 and noise polynomials as one row of signed values, lifted to every prime
-there); the NTTs and products of an encryption run on the device.
+there); the NTTs and products of an encryption run on the device. For a
+batch of B encryptions (`count=B`, the Encryptor's encrypt_many) the host
+draws each member's bytes in the order of B sequential calls, the draws of
+the batch move to the device together, and every NTT is one launch for the
+batch.
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ import torch
 from seal_tpu_torch import randomgen
 from seal_tpu_torch.context import ContextData, SEALContext
 from seal_tpu_torch.encryption_params import SchemeType
-from seal_tpu_torch.interop import u64_to_tensor
 from seal_tpu_torch.ops import modarith, modring
 from seal_tpu_torch.ops import ntt as ntt_mod
 
@@ -163,32 +166,52 @@ def _times_t(e: torch.Tensor, cd: ContextData) -> torch.Tensor:
     return modarith.mul_mod_shoup(e, *cd.plain_consts["t_mod_q"], cd.mod_consts.q)
 
 
+def _members(count):
+    return 1 if count is None else count
+
+
+def _one_or_batch(host: np.ndarray, count):
+    """Host draws [B, ...] -> [...] for one encryption (count None)."""
+    return host[0] if count is None else host
+
+
 def encrypt_zero_symmetric(secret_key, context: SEALContext, cd: ContextData,
-                           is_ntt_form: bool = True, save_seed: bool = False):
+                           is_ntt_form: bool = True, save_seed: bool = False,
+                           count: int | None = None):
     """SEAL's symmetric encryption of zero at level cd (rlwe.cpp:415-545):
     (c0, c1) = (-(a·s + e), a), with e times t for BGV. A bootstrap stream
     gives the seed of a second stream, which draws a; e comes from the
     bootstrap stream after the seed. In NTT form a is read as the NTT of
     c1; in coefficient form it is read as the NTT form and c1 leaves
     through the inverse NTT, unless save_seed, where a is the coefficient
-    form itself (the seed then regenerates c1). Returns ([2, L, N],
-    (prng type, seed of a))."""
+    form itself (the seed then regenerates c1). Returns ([2, L, N], (prng
+    type, seed of a)); with count=B, ([B, 2, L, N], [B seeds])."""
     moduli = cd.key_moduli()
     n = cd.parms.poly_modulus_degree
     mc, tables = cd.mod_consts, cd.ntt_tables
-    bootstrap = prng_for(context)
-    public_seed = tuple(np.frombuffer(
-        bootstrap.generate(randomgen.PRNG_SEED_BYTE_COUNT), dtype="<u8").tolist())
     prng_type = context.key_context_data().parms.prng_type
-    a = u64_to_tensor(sample_poly_uniform(
-        randomgen.UniformRandomGeneratorFactory(prng_type).create(public_seed), moduli, n),
-        context)
+    seeds, a_host, e_host = [], [], []
+    for _ in range(_members(count)):
+        bootstrap = prng_for(context)
+        public_seed = tuple(np.frombuffer(
+            bootstrap.generate(randomgen.PRNG_SEED_BYTE_COUNT), dtype="<u8").tolist())
+        a_host.append(sample_poly_uniform(
+            randomgen.UniformRandomGeneratorFactory(prng_type).create(public_seed), moduli, n))
+        e_host.append(cbd_values(bootstrap, n))
+        seeds.append((int(prng_type), public_seed))
+    # a (below q < 2^61, so its int64 view is its value) and the signed
+    # noise rows of the whole batch in one transfer
+    draws = np.concatenate([np.stack(a_host).view(np.int64),
+                            np.stack(e_host)[:, None, :]], axis=1)
+    draws = torch.from_numpy(_one_or_batch(draws, count)).to(context.device)
+    L = len(moduli)
+    a, e = draws[..., :L, :], draws[..., L:, :]
     if is_ntt_form or not save_seed:
         c1_ntt = a
         c1 = a if is_ntt_form else ntt_mod.ntt_inverse(a, tables)
     else:
         c1_ntt, c1 = ntt_mod.ntt_forward(a, tables), a
-    e = lift(cbd_values(bootstrap, n), mc.q)
+    e = torch.where(e < 0, e + mc.q, e)
     sc1 = modring.dyadic_product(secret_key.data[:len(moduli)], c1_ntt, mc)
     if is_ntt_form:
         e = ntt_mod.ntt_forward(e, tables)
@@ -197,24 +220,29 @@ def encrypt_zero_symmetric(secret_key, context: SEALContext, cd: ContextData,
     if cd.parms.scheme == SchemeType.BGV:
         e = _times_t(e, cd)
     c0 = modring.negate_poly(modring.add_poly(e, sc1, mc), mc)
-    return torch.stack([c0, c1]), (int(prng_type), public_seed)
+    return torch.stack([c0, c1], dim=-3), (seeds[0] if count is None else seeds)
 
 
 def encrypt_zero_asymmetric(public_key, context: SEALContext, cd: ContextData,
-                            is_ntt_form: bool) -> torch.Tensor:
+                            is_ntt_form: bool, count: int | None = None) -> torch.Tensor:
     """c_j = u·pk_j + e_j, with e_j times t for BGV (rlwe.cpp:189-274): u
     ternary then e_0, e_1, ... from one stream. The public key lives at the
-    key level; a lower level uses its first L rows. Returns [size, L, N]."""
+    key level; a lower level uses its first L rows. Returns [size, L, N];
+    with count=B, [B, size, L, N]."""
     mc, tables = cd.mod_consts, cd.ntt_tables
     L, n = cd.coeff_modulus_size, cd.parms.poly_modulus_degree
     pk = public_key.data.data[:, :L]
     size = pk.shape[0]
-    prng = prng_for(context)
-    u = ternary_values(prng, n)
-    e = np.stack([cbd_values(prng, n) for _ in range(size)])
-    u = ntt_mod.ntt_forward(lift(u, mc.q), tables)
-    c = modring.dyadic_product(u, pk, mc)
-    e = lift(e, mc.q)
+    draws = []
+    for _ in range(_members(count)):
+        prng = prng_for(context)
+        u = ternary_values(prng, n)
+        draws.append(np.stack([u] + [cbd_values(prng, n) for _ in range(size)]))
+    # u and the e_j of the whole batch in one transfer
+    lifted = lift(_one_or_batch(np.stack(draws), count), mc.q)
+    u = ntt_mod.ntt_forward(lifted[..., 0, :, :], tables)
+    c = modring.dyadic_product(u.unsqueeze(-3), pk, mc)
+    e = lifted[..., 1:, :, :]
     if is_ntt_form:
         e = ntt_mod.ntt_forward(e, tables)
     else:

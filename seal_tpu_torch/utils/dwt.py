@@ -8,7 +8,9 @@ tensors' device, one stage at a time: a stage's butterflies are
 independent, and each eager PyTorch op rounds once, as IEEE 754 requires,
 so every value is SEAL's scalar loop's, on the card and on the CPU alike.
 Nothing may fuse a product into an add (no addcmul, lerp or compiled
-kernels); the complex product is the naive (ac - bd, ad + bc).
+kernels); the complex product is the naive (ac - bd, ad + bc). The
+transforms run over the last axis, so a batch [B, n] is B transforms with
+the same launches as one, each member's values those of its own.
 """
 
 from __future__ import annotations
@@ -79,70 +81,74 @@ def transform_from_rev(re: torch.Tensor, im: torch.Tensor, roots, scalar=None):
     """DWTHandler::transform_from_rev (dwthandler.h:202-356): bit-reversed
     input -> natural output, roots consumed in order from index 1, the
     scalar merged into the last stage. roots: (re, im) float64 tensors on
-    the device. Writes into and returns (re, im)."""
-    n = re.numel()
+    the device. re, im: [..., n], contiguous. Writes into and returns (re,
+    im)."""
+    n = re.shape[-1]
+    lead = re.shape[:-1]
     r_re, r_im = roots
     gap, m, ridx = 1, n >> 1, 1
     while m > 1:
         rr = r_re[ridx:ridx + m, None]
         ri = r_im[ridx:ridx + m, None]
         ridx += m
-        vre, vim = re.view(m, 2, gap), im.view(m, 2, gap)
-        ure, uim = vre[:, 0].clone(), vim[:, 0].clone()
-        wre, wim = vre[:, 1], vim[:, 1]
+        vre, vim = re.view(lead + (m, 2, gap)), im.view(lead + (m, 2, gap))
+        ure, uim = vre[..., 0, :].clone(), vim[..., 0, :].clone()
+        wre, wim = vre[..., 1, :], vim[..., 1, :]
         # x = u + v; y = (u - v)·r
         sre = ure - wre
         sim = uim - wim
-        vre[:, 0] = ure + wre
-        vim[:, 0] = uim + wim
-        vre[:, 1] = sre * rr - sim * ri
-        vim[:, 1] = sre * ri + sim * rr
+        vre[..., 0, :] = ure + wre
+        vim[..., 0, :] = uim + wim
+        vre[..., 1, :] = sre * rr - sim * ri
+        vim[..., 1, :] = sre * ri + sim * rr
         gap <<= 1
         m >>= 1
     rr, ri = float(r_re[ridx]), float(r_im[ridx])
-    ure, uim = re[:gap].clone(), im[:gap].clone()
-    wre, wim = re[gap:], im[gap:]
+    ure, uim = re[..., :gap].clone(), im[..., :gap].clone()
+    wre, wim = re[..., gap:], im[..., gap:]
     sre = ure - wre
     sim = uim - wim
     if scalar is not None:
         # x = (u + v)·scalar; y = (u - v)·(r·scalar) (dwthandler.h:276-305)
         rr, ri = rr * scalar, ri * scalar
-        re[:gap] = (ure + wre) * scalar
-        im[:gap] = (uim + wim) * scalar
+        re[..., :gap] = (ure + wre) * scalar
+        im[..., :gap] = (uim + wim) * scalar
     else:
-        re[:gap] = ure + wre
-        im[:gap] = uim + wim
-    re[gap:] = sre * rr - sim * ri
-    im[gap:] = sre * ri + sim * rr
+        re[..., :gap] = ure + wre
+        im[..., :gap] = uim + wim
+    re[..., gap:] = sre * rr - sim * ri
+    im[..., gap:] = sre * ri + sim * rr
     return re, im
 
 
 def transform_to_rev(re: torch.Tensor, im: torch.Tensor, roots, scalar=None):
     """DWTHandler::transform_to_rev (dwthandler.h:94-191): natural input ->
-    bit-reversed output. Writes into and returns (re, im)."""
-    n = re.numel()
+    bit-reversed output, over the last axis of contiguous [..., n] tensors.
+    Writes into and returns (re, im)."""
+    n = re.shape[-1]
+    lead = re.shape[:-1]
     r_re, r_im = roots
     gap, m, ridx = n >> 1, 1, 1
     while m < (n >> 1):
         rr = r_re[ridx:ridx + m, None]
         ri = r_im[ridx:ridx + m, None]
         ridx += m
-        vre, vim = re.view(m, 2, gap), im.view(m, 2, gap)
-        ure, uim = vre[:, 0].clone(), vim[:, 0].clone()
-        wre, wim = vre[:, 1], vim[:, 1]
+        vre, vim = re.view(lead + (m, 2, gap)), im.view(lead + (m, 2, gap))
+        ure, uim = vre[..., 0, :].clone(), vim[..., 0, :].clone()
+        wre, wim = vre[..., 1, :], vim[..., 1, :]
         # v = y·r; x = u + v; y = u - v
         pre = wre * rr - wim * ri
         pim = wre * ri + wim * rr
-        vre[:, 0] = ure + pre
-        vim[:, 0] = uim + pim
-        vre[:, 1] = ure - pre
-        vim[:, 1] = uim - pim
+        vre[..., 0, :] = ure + pre
+        vim[..., 0, :] = uim + pim
+        vre[..., 1, :] = ure - pre
+        vim[..., 1, :] = uim - pim
         gap >>= 1
         m <<= 1
     rr, ri = r_re[ridx:ridx + m], r_im[ridx:ridx + m]
-    vre, vim = re.view(m, 2), im.view(m, 2)
-    ure, uim = vre[:, 0].clone(), vim[:, 0].clone()
-    wre, wim = vre[:, 1], vim[:, 1]
+    vre, vim = re.view(lead + (m, 2)), im.view(lead + (m, 2))
+    ure, uim = vre[..., 0].clone(), vim[..., 0].clone()
+    wre, wim = vre[..., 1], vim[..., 1]
     if scalar is not None:
         # u = x·scalar before the butterfly, v = y·(r·scalar)
         # (dwthandler.h:165-178)
@@ -150,10 +156,10 @@ def transform_to_rev(re: torch.Tensor, im: torch.Tensor, roots, scalar=None):
         ure, uim = ure * scalar, uim * scalar
     pre = wre * rr - wim * ri
     pim = wre * ri + wim * rr
-    vre[:, 0] = ure + pre
-    vim[:, 0] = uim + pim
-    vre[:, 1] = ure - pre
-    vim[:, 1] = uim - pim
+    vre[..., 0] = ure + pre
+    vim[..., 0] = uim + pim
+    vre[..., 1] = ure - pre
+    vim[..., 1] = uim - pim
     return re, im
 
 

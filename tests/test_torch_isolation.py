@@ -57,7 +57,11 @@ def test_every_module_listed():
     assert {"seal_tpu_torch.evaluator", "seal_tpu_torch.ops.ntt",
             "seal_tpu_torch.ops.keyswitch", "seal_tpu_torch.interop",
             "seal_tpu_torch.config", "seal_tpu_torch.ops.galois",
-            "seal_tpu_torch.encoders", "seal_tpu_torch.ops.rns"} <= set(MODULES)
+            "seal_tpu_torch.encoders", "seal_tpu_torch.ops.rns",
+            "seal_tpu_torch.dtypes", "seal_tpu_torch.ckks", "seal_tpu_torch.encryptor",
+            "seal_tpu_torch.decryptor", "seal_tpu_torch.rlwe", "seal_tpu_torch.plain_lift",
+            "seal_tpu_torch.ops.hybrid_keyswitch", "seal_tpu_torch.ops.compose",
+            "seal_tpu_torch.utils.dwt"} <= set(MODULES)
 
 
 def _parms():

@@ -429,3 +429,157 @@ def test_large_coefficient_encodes_on_card():
         np.testing.assert_array_equal(
             encoder.encode(v, 2.0 ** lg).to_numpy().reshape(-1),
             np.array(vec[f"plain_{lg}"], dtype=np.uint64), err_msg=f"scale 2^{lg}")
+
+
+# -- batches ---------------------------------------------------------------------
+
+_BATCH_CASES = [(B, J, I, n) for B in (1, 2, 16) for J, I, n in
+                ((1, 3, 4096), (4, 10, 16384), (8, 9, 16384))] + \
+               [(3, 8, 9, 1024), (9, 4, 5, 1024)]
+
+
+def _batched_operands(B, J, I, n, bits, seed):
+    """t [B, J, I, N] and one key k [J, 2, I, N] below q (t and k at q - 1 in
+    every row's first word), the key's quotients and the constants."""
+    rng = np.random.default_rng(seed)
+    moduli = [m.value for m in CoeffModulus.create(max(n, 1024), [bits] * I)]
+    q = np.array(moduli, dtype=np.int64)[:, None]
+    t = rng.integers(0, q, (B, J, I, n), dtype=np.int64)
+    k = rng.integers(0, q, (J, 2, I, n), dtype=np.int64)
+    t[..., 0] = k[..., 0] = q[:, 0] - 1
+    t, k = torch.from_numpy(t), torch.from_numpy(k)
+    return moduli, t, k, keyswitch.key_quotients(k, moduli), \
+        keyswitch.pack_mod_consts(moduli, "cpu")
+
+
+@pytest.mark.parametrize("B,J,I,n", _BATCH_CASES)
+def test_keyswitch_kernels_batched_match_plain(B, J, I, n):
+    """K2 and K3 over a batch [B, J, I, N] that shares one key: one launch
+    each, equal to the plain versions' batch bit for bit, and member for
+    member to the unbatched kernel (54-bit primes keep 2·J·max q < 2^64)."""
+    moduli, t, k, kq, consts = _batched_operands(B, J, I, n, 54, B * 1000 + J * 10 + I)
+    dev = [a.cuda() for a in (t, k, kq, consts)]
+    before = dict(cuda.launches)
+    k2 = keyswitch.keyswitch_inner(dev[0], dev[1], dev[3])
+    k3 = keyswitch.keyswitch_inner_shoup(*dev, max(moduli))
+    assert cuda.launches["keyswitch_inner"] == before["keyswitch_inner"] + 1
+    assert cuda.launches["keyswitch_inner_shoup"] == before["keyswitch_inner_shoup"] + 1
+    assert k2.shape == (B, 2, I, n)
+    want = keyswitch.keyswitch_inner_plain(t, k, consts)
+    assert torch.equal(k2.cpu(), want)
+    assert torch.equal(k3.cpu(), keyswitch.keyswitch_inner_shoup_plain(t, k, kq, consts,
+                                                                       max(moduli)))
+    assert torch.equal(k3, k2)
+    for b in (0, B - 1):
+        assert torch.equal(keyswitch.keyswitch_inner(dev[0][b], dev[1], dev[3]), k2[b])
+
+
+@pytest.mark.parametrize("B,J,bits,n", [(16, 7, 60, 4096), (5, 3, 61, 4096)])
+def test_keyswitch_shoup_kernel_batched_past_2_63(B, J, bits, n):
+    """The past-2^63 sums of test_keyswitch_shoup_kernel_matches_plain_past_2_63
+    over a batch: t spans all 64 bits."""
+    from seal_tpu_torch.utils import numth
+
+    I = 2
+    moduli = numth.get_primes(2 * n, bits, I)
+    rng = np.random.default_rng(B * 100 + bits)
+    t = torch.from_numpy(rng.integers(0, 1 << 64, (B, J, I, n), dtype=np.uint64).view(np.int64))
+    q = np.array(moduli, dtype=np.int64)[:, None]
+    k = torch.from_numpy(rng.integers(0, q, (J, 2, I, n), dtype=np.int64))
+    kq = keyswitch.key_quotients(k, moduli)
+    consts = keyswitch.pack_mod_consts(moduli, "cpu")
+    plain = keyswitch.keyswitch_inner_shoup_plain(t, k, kq, consts, max(moduli))
+    kernel = keyswitch.keyswitch_inner_shoup(
+        t.cuda(), k.cuda(), kq.cuda(), consts.cuda(), max(moduli))
+    assert torch.equal(kernel.cpu(), plain)
+
+
+def _batch_vs_sequential(ctx, ops, cts, rk, gk=None):
+    """Each op on the stacked batch against the op on each member, on ctx's
+    device, flag off and on; the batch launches each kernel as often as one
+    member does."""
+    from seal_tpu_torch.config import config
+    from seal_tpu_torch.dtypes import stack_ciphertexts
+
+    ev = st.Evaluator(ctx)
+    batch = stack_ciphertexts(cts)
+    for shoup in (False, True):
+        config.keyswitch_shoup = shoup
+        try:
+            for name, op in ops.items():
+                cuda.reset_launches()
+                got = op(ev, batch, rk, gk)
+                batch_launches = dict(cuda.launches)
+                for b, ct in enumerate(cts):
+                    cuda.reset_launches()
+                    want = op(ev, ct, rk, gk)
+                    assert dict(cuda.launches) == batch_launches, (name, shoup)
+                    assert torch.equal(got.data[b], want.data), (name, shoup, b)
+                    assert tuple(got.parms_id) == tuple(want.parms_id)
+                    assert got.correction_factor == want.correction_factor
+        finally:
+            config.keyswitch_shoup = False
+
+
+@pytest.mark.parametrize("alpha,bits", [(2, [44] * 8 + [43] * 2), (1, [48] * 8 + [54])])
+def test_ckks_batch_on_card_matches_sequential(alpha, bits):
+    """bench.py's headline configurations at n = 16384, B = 4: encode_many ->
+    encrypt_many -> the stacked batch through multiply -> relinearize ->
+    rescale (and the fused tail), rotations; each member bit for bit its own
+    sequential call on the card."""
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(16384)
+    parms.set_coeff_modulus(st.CoeffModulus.create(16384, bits))
+    parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((alpha, 6) * 4)
+    ctx = st.SEALContext(parms)
+    kg = st.KeyGenerator(ctx)
+    rk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1, 2, 0])
+    enc = st.Encryptor(ctx, kg.create_public_key())
+    encoder = st.CKKSEncoder(ctx)
+    rng = np.random.default_rng(alpha)
+    values = rng.uniform(-1, 1, (4, 8192))
+    plains = encoder.encode_many(values, 2.0 ** 40)
+    cts = enc.encrypt_many(plains)
+    for p, ct, v in zip(plains, cts, values):
+        assert torch.equal(p.data, encoder.encode(v, 2.0 ** 40).data)
+        assert torch.equal(ct.data, enc.encrypt(p).data)
+    ops = {"mult_relin_rescale": lambda ev, c, rk, gk: ev.rescale_to_next(
+               ev.relinearize(ev.multiply(c, c), rk)),
+           "mult_relin_rescale_fused": lambda ev, c, rk, gk: ev.relinearize_rescale(
+               ev.multiply(c, c), rk),
+           "rotate_vector": lambda ev, c, rk, gk: ev.rotate_vector(c, 1, gk),
+           "conjugate": lambda ev, c, rk, gk: ev.complex_conjugate(c, gk),
+           "hoisted": lambda ev, c, rk, gk: ev.rotate_batch_hoisted(c, [1, 2], gk)[1]}
+    _batch_vs_sequential(ctx, ops, cts, rk, gk)
+
+
+@pytest.mark.parametrize("scheme", ["BFV", "BGV"])
+def test_exact_batch_on_card_matches_sequential(scheme):
+    """BFV and BGV at bfv_default(16384), B = 2: multiply -> relinearize ->
+    mod switch -> rotate_rows and multiply_plain on the stacked batch against
+    each member's sequential call on the card; decrypt_many against decrypt."""
+    scheme = st.SchemeType[scheme]
+    parms = st.EncryptionParameters(scheme)
+    parms.set_poly_modulus_degree(16384)
+    parms.set_coeff_modulus(st.CoeffModulus.bfv_default(16384))
+    parms.set_plain_modulus(st.PlainModulus.batching(16384, 20))
+    parms.set_random_seed((int(scheme), 6) * 4)
+    ctx = st.SEALContext(parms)
+    kg = st.KeyGenerator(ctx)
+    rk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1])
+    enc = st.Encryptor(ctx, kg.create_public_key())
+    be = st.BatchEncoder(ctx)
+    t = parms.plain_modulus.value
+    values = np.random.default_rng(int(scheme)).integers(0, t, (2, 16384))
+    plains = be.encode_many(values)
+    cts = enc.encrypt_many(plains)
+    ops = {"mult_relin_modswitch_rotate": lambda ev, c, rk, gk: ev.rotate_rows(
+               ev.mod_switch_to_next(ev.relinearize(ev.multiply(c, c), rk)), 1, gk),
+           "multiply_plain": lambda ev, c, rk, gk: ev.multiply_plain(c, plains[1])}
+    _batch_vs_sequential(ctx, ops, cts, rk, gk)
+    dec = st.Decryptor(ctx, kg.secret_key())
+    many = dec.decrypt_many(cts)
+    for p, ct in zip(many, cts):
+        assert torch.equal(p.data, dec.decrypt(ct).data)
+    assert np.array_equal(be.decode_many(many).cpu().numpy(), values)
