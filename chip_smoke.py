@@ -75,16 +75,42 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    encrypt_many -> multiply -> relinearize -> mod_switch_to_next on the
    stacked batch, flag off and on, each member against its sequential call
    on the card, decrypt_many -> decode_many against the exact products.
-11. K1 passes: the device time of each of K1's two kernels at phase 2's
+11. threshold, the fork's multiparty layer, in two configurations: BFV at
+   phase 7's parameters and CKKS at bench.py's --parity parameters (α=1,
+   bits [48]*8 + [54], scale 2^40). Three parties, each with its own
+   context and random seed (10 + i, 2, ..., 8), make their secret keys,
+   public keys sharing party 0's c1 and Galois key shares under party 0's
+   key-switching c1s (BFV rows step 1 and the columns element, CKKS rotate
+   step 1) on the card; then the common public key and the aggregated
+   Galois keys; random slots encoded and encrypted under the common key;
+   one rotation under the aggregated keys, Shoup flag off (K2) and on (K3);
+   each party's partial decryption and their aggregate -> decode. Every
+   key, share, ciphertext, partial and aggregate is held bit for bit
+   against the same flow on CPU copies of the contexts (the plain path),
+   the aggregate against the common secret key's decryption, the BFV
+   decode exactly and the CKKS decode within 1e-4 against the rotated
+   slots. Then the partials again with 20 bits of smudging noise: each
+   minus its unsmudged twin is one centred value in [-2^20, 2^20] on every
+   row, the BFV decode still exact, the CKKS decode within 1e-3.
+12. wire: the threshold objects through SEAL's wire format (ZLIB) and back
+   onto the card: each partial before aggregation, each Galois share and
+   the common public key; for CKKS also a save_seed relinearization key
+   and a seeded symmetric ciphertext (phase 8's α=1 parameters) beside
+   their unseeded twins. Each save from the card must equal the save of
+   its CPU copy byte for byte, each load equal the original, valcheck hold
+   it valid and refuse a copy with one residue set to q, and each seeded
+   object be about half its twin; bytes, ms and MB/s of every save and
+   load.
+13. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-12. kernels: one JSON line with every ported kernel, its check and times.
+14. kernels: one JSON line with every ported kernel, its check and times.
 
 Phases 3 and 4 also hold K2 and K3 over a batch [16, J, I, N] that shares
 one key, at both modes' (J, I), against their plain versions.
 
-Phases 7 and 8 print, per step, the host-clock ms, the kernel launches and
-the bytes drawn from the byte stream with their rate.
+Phases 7, 8 and 11 print, per step, the host-clock ms, the kernel launches
+and the bytes drawn from the byte stream with their rate.
 Launch counts are zeroed just before each run of a path and read just after.
 
 It needs one CUDA device, and ends with the line
@@ -1196,6 +1222,354 @@ def phase_exact_batch(scheme):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the threshold (multiparty) layer and the wire format
+# ---------------------------------------------------------------------------
+
+PARTIES = 3
+SMUDGING_BITS = 20
+SMUDGED_DECODE_BOUND = 1e-3     # |decoded - rotated slots| allowed after smudging
+# bfv: phase 7's parameters (bfv_default(N), a 20-bit batching t, α = 1);
+# ckks_alpha1: bench.py's --parity bits [48]*8 + [54], scale 2^40
+THRESHOLD = {"bfv": dict(scheme="BFV"),
+             "ckks_alpha1": dict(scheme="CKKS", **MODES["alpha1_parity"])}
+
+
+def party_contexts(config, device=None):
+    """One context per party, each seeded (10 + i, 2, 3, ..., 8) as in the
+    fork's vectors (tests/vectors/multiparty_bfv_n64.json)."""
+    from seal_tpu_torch import (
+        CoeffModulus, EncryptionParameters, PlainModulus, SchemeType, SEALContext)
+
+    spec = THRESHOLD[config]
+    out = []
+    for i in range(PARTIES):
+        parms = EncryptionParameters(SchemeType[spec["scheme"]])
+        parms.set_poly_modulus_degree(N)
+        if spec["scheme"] == "CKKS":
+            parms.set_coeff_modulus(CoeffModulus.create(N, spec["bits"]))
+            parms.set_special_modulus_size(spec["alpha"])
+        else:
+            parms.set_coeff_modulus(CoeffModulus.bfv_default(N))
+            parms.set_plain_modulus(PlainModulus.batching(N, EXACT_T_BITS))
+        parms.set_random_seed((10 + i, 2, 3, 4, 5, 6, 7, 8))
+        out.append(SEALContext(parms) if device is None else SEALContext(parms, device=device))
+    return out
+
+
+def threshold_flow(ctxs, values, run):
+    """The fork's threshold flow on the parties' contexts, each step through
+    run(name, fn): party secret keys -> public keys sharing party 0's c1 ->
+    Galois key shares under party 0's key-switching c1s (BFV: rows step 1
+    and the columns element; CKKS: rotate step 1) -> the common public key,
+    the common secret key (to check against) and the aggregated Galois keys
+    -> encode, encrypt under the common public key -> one rotation, Shoup
+    flag off (K2) and on (K3) -> each party's unsmudged partial decryption
+    -> the aggregate -> decode. Returns the objects by name."""
+    from seal_tpu_torch import (
+        BatchEncoder, CKKSEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator)
+    from seal_tpu_torch.config import config
+
+    ckks = ctxs[0].key_context_data().parms.scheme.name == "CKKS"
+    o = {}
+
+    def secret_keys():
+        kgs = [KeyGenerator(c) for c in ctxs]
+        return kgs, [kg.generate_secret_key() for kg in kgs]
+
+    kgs, sks = o["kgs"], o["sks"] = run("keygen_secret", secret_keys)
+
+    def public_keys():
+        pk0 = kgs[0].create_public_key_with_sk(sks[0])
+        return [pk0] + [kgs[i].create_public_key_with_same_c1(sks[i], pk0)
+                        for i in range(1, PARTIES)]
+
+    o["pks"] = run("keygen_public", public_keys)
+    gt = ctxs[0].key_context_data().galois_tool
+    o["elts"] = elts = [gt.get_elt_from_step(1)] + ([] if ckks else [2 * N - 1])
+
+    def galois_shares():
+        gk0 = kgs[0].create_galois_keys(elts, secret_key=sks[0])
+        refs = [gk0.key(e)[:, 1] for e in elts]
+        return [gk0] + [kgs[i].create_galois_keys(elts, secret_key=sks[i],
+                                                  c1_refs_per_elt=refs)
+                        for i in range(1, PARTIES)]
+
+    o["gks"] = run("keygen_galois_shares", galois_shares)
+    o["cpk"], o["csk"], o["common_gk"] = run("common_keys", lambda: (
+        kgs[0].create_common_public_key(o["pks"]), kgs[0].create_common_secret_key(sks),
+        kgs[0].aggregate_galois_keys(elts, o["gks"])))
+    encoder = CKKSEncoder(ctxs[0]) if ckks else BatchEncoder(ctxs[0])
+    o["plain"] = run("encode", lambda: encoder.encode(values, ROUND_TRIP_SCALE) if ckks
+                     else encoder.encode(values))
+    o["ct"] = run("encrypt_common", lambda: Encryptor(ctxs[0], o["cpk"]).encrypt(o["plain"]))
+    ev = Evaluator(ctxs[0])
+
+    def rotate():
+        return (ev.rotate_vector(o["ct"], 1, o["common_gk"]) if ckks
+                else ev.rotate_rows(o["ct"], 1, o["common_gk"]))
+
+    o["rot"] = run("rotate", rotate)
+    config.keyswitch_shoup = True
+    try:
+        o["rot_shoup"] = run("rotate_shoup", rotate)
+    finally:
+        config.keyswitch_shoup = False
+    o["decs"] = [Decryptor(c, sk) for c, sk in zip(ctxs, sks)]
+    o["partials"] = run("partial_decrypt",
+                        lambda: [d.distributed_decrypt(o["rot"]) for d in o["decs"]])
+    o["aggregate"] = run("aggregate", lambda: o["decs"][0].aggregate_partial_decryption(
+        o["rot"], o["partials"]))
+    o["decoded"] = run("decode", lambda: encoder.decode(o["aggregate"], complex_out=True)
+                       if ckks else encoder.decode(o["aggregate"]))
+    return o
+
+
+def threshold_arrays(o):
+    """Every key, share, ciphertext, partial, aggregate and decoded slot of
+    a flow as uint64 numpy arrays, by name."""
+    import numpy as np
+
+    from seal_tpu_torch.dtypes import u64_numpy
+
+    out = {"cpk": o["cpk"].to_numpy(), "csk": o["csk"].to_numpy(),
+           "plain": o["plain"].to_numpy(), "ct": o["ct"].to_numpy(),
+           "rot": o["rot"].to_numpy(), "rot_shoup": o["rot_shoup"].to_numpy(),
+           "aggregate": o["aggregate"].to_numpy(),
+           "decoded": np.ascontiguousarray(o["decoded"].cpu().numpy()).view(np.uint64)}
+    for i in range(PARTIES):
+        out[f"sk{i}"], out[f"pk{i}"] = o["sks"][i].to_numpy(), o["pks"][i].to_numpy()
+        out[f"partial{i}"] = o["partials"][i].to_numpy()
+        for e in o["elts"]:
+            out[f"gk{i}_elt{e}"] = u64_numpy(o["gks"][i].key(e))
+    for e in o["elts"]:
+        out[f"common_gk_elt{e}"] = u64_numpy(o["common_gk"].key(e))
+    return out
+
+
+def smudge_offsets(o, smudged):
+    """Per party: (every row of smudged - unsmudged, centred, is the same
+    integer vector; its largest magnitude). For an NTT-form ciphertext the
+    difference is taken back through the inverse NTT."""
+    import torch
+
+    from seal_tpu_torch.ops import ntt
+
+    rot = o["rot"]
+    cd = o["decs"][0].context.get_context_data(rot.parms_id)
+    q = cd.mod_consts.q
+    out = []
+    for part, clean in zip(smudged, o["partials"]):
+        diff = torch.remainder(part.poly(0) - clean.poly(0), q)
+        if rot.is_ntt_form:
+            diff = ntt.ntt_inverse(diff, cd.ntt_tables)
+        centred = torch.where(diff > q // 2, diff - q, diff)
+        out.append((bool((centred == centred[0]).all()), int(centred.abs().max())))
+    return out
+
+
+def phase_threshold(config):
+    """The threshold flow at full width on the card, against the same flow on
+    CPU copies of the parties' contexts (the plain path), bit for bit; the
+    aggregate against the common secret key's decryption; the decode against
+    the rotated slots. Then the partials again with SMUDGING_BITS of noise."""
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import BatchEncoder, CKKSEncoder, Decryptor
+
+    start = time.perf_counter()
+    ckks = THRESHOLD[config]["scheme"] == "CKKS"
+    ctxs, ctxs_cpu = party_contexts(config), party_contexts(config, device="cpu")
+    rng = np.random.default_rng(SEED + 20)
+    if ckks:
+        values = unit_disc(rng, N // 2)
+        want = np.roll(values, -1)
+    else:
+        t = ctxs[0].key_context_data().parms.plain_modulus.value
+        values = rng.integers(0, t, N, dtype=np.int64)
+        want = np.roll(values.reshape(2, N // 2), -1, axis=1).reshape(-1)
+    record = {}
+    o = threshold_flow(ctxs, values, lambda name, fn: step(record, name, fn))
+    t0 = time.perf_counter()
+    o_cpu = threshold_flow(ctxs_cpu, values, lambda name, fn: fn())
+    cpu_s = time.perf_counter() - t0
+    card, cpu = threshold_arrays(o), threshold_arrays(o_cpu)
+    for name, got in card.items():
+        require(np.array_equal(got, cpu[name]),
+                f"threshold {config} {name}: card bit-identical to the CPU path")
+    require(np.array_equal(card["rot"], card["rot_shoup"]),
+            f"threshold {config}: Shoup route bit-identical to the 128-bit route")
+    shared_c1 = all(torch.equal(pk.data.poly(1), o["pks"][0].data.poly(1)) for pk in o["pks"])
+    require(shared_c1, f"threshold {config}: the parties' public keys share c1")
+    direct = Decryptor(ctxs[0], o["csk"]).decrypt(o["rot"])
+    require(torch.equal(direct.data, o["aggregate"].data),
+            f"threshold {config}: the aggregate equals the common secret key's decryption")
+    decoded = o["decoded"].cpu().numpy()
+    if ckks:
+        err = float(np.abs(decoded - want).max())
+        require(err <= DECODE_BOUND, f"threshold {config}: decoded error {err} within "
+                                     f"{DECODE_BOUND}")
+    else:
+        err = 0.0
+        require(np.array_equal(decoded, want), f"threshold {config}: decode equals the "
+                                               "rotated slots")
+
+    # again with smudging noise on every partial (card only: the noise is fresh)
+    smudged = step(record, "partial_decrypt_smudged", lambda: [
+        d.distributed_decrypt(o["rot"], SMUDGING_BITS) for d in o["decs"]])
+    aggregate = step(record, "aggregate_smudged",
+                     lambda: o["decs"][0].aggregate_partial_decryption(o["rot"], smudged))
+    offsets = smudge_offsets(o, smudged)
+    for i, (same_rows, largest) in enumerate(offsets):
+        require(same_rows and largest <= 1 << SMUDGING_BITS,
+                f"threshold {config} party {i}: the smudging noise is one centred value in "
+                f"[-2^{SMUDGING_BITS}, 2^{SMUDGING_BITS}] on every row ({largest})")
+    if ckks:
+        got = CKKSEncoder(ctxs[0]).decode(aggregate, complex_out=True).cpu().numpy()
+        err_smudged = float(np.abs(got - want).max())
+        require(err_smudged <= SMUDGED_DECODE_BOUND,
+                f"threshold {config}: smudged decoded error {err_smudged} within "
+                f"{SMUDGED_DECODE_BOUND}")
+    else:
+        err_smudged = 0.0
+        require(np.array_equal(BatchEncoder(ctxs[0]).decode(aggregate).cpu().numpy(), want),
+                f"threshold {config}: smudged decode equals the rotated slots")
+    total = {}
+    for r in record.values():
+        add_counts(total, r["launches"])
+    for kernel in ("ntt_forward", "ntt_inverse", "keyswitch_inner", "keyswitch_inner_shoup"):
+        require(total.get(kernel, 0) > 0, f"threshold {config}: {kernel} launched on its path")
+    emit({"phase": "threshold", "config": config, "n": N, "parties": PARTIES,
+          "galois_elts": o["elts"], "bit_exact_vs_plain": True, "shoup_bit_identical": True,
+          "aggregate_equals_common_key_decrypt": True, "max_decode_err": err,
+          "decode_bound": DECODE_BOUND if ckks else 0, "smudging_bits": SMUDGING_BITS,
+          "smudge_max_abs": [largest for _, largest in offsets],
+          "max_decode_err_smudged": err_smudged,
+          "decode_bound_smudged": SMUDGED_DECODE_BOUND if ckks else 0,
+          "steps": record, "plain_cpu_s": cpu_s, "phase_s": time.perf_counter() - start})
+    return total, o, o_cpu
+
+
+def spoiled(obj, ctx):
+    """A copy of a ciphertext, public key or key set with its first residue
+    set to q_0 (out of range)."""
+    import copy
+
+    from seal_tpu_torch import Ciphertext, PublicKey
+
+    q0 = ctx.key_context_data().key_moduli()[0]
+    out = copy.copy(obj)
+    if isinstance(obj, Ciphertext):
+        out.data = obj.data.clone()
+        out.data.view(-1)[0] = q0
+    elif isinstance(obj, PublicKey):
+        out.data = spoiled(obj.data, ctx)
+    else:
+        out.keys = list(obj.keys)
+        i = next(i for i, k in enumerate(obj.keys) if k is not None)
+        out.keys[i] = obj.keys[i].clone()
+        out.keys[i].view(-1)[0] = q0
+    return out
+
+
+def same_object(a, b):
+    """The same residues, metadata and seeds."""
+    import torch
+
+    from seal_tpu_torch import Ciphertext, PublicKey
+
+    if isinstance(a, PublicKey):
+        return same_object(a.data, b.data)
+    if isinstance(a, Ciphertext):
+        return (torch.equal(a.data, b.data) and tuple(a.parms_id) == tuple(b.parms_id)
+                and (a.is_ntt_form, a.scale, a.correction_factor, a.seed_info)
+                == (b.is_ntt_form, b.scale, b.correction_factor, b.seed_info))
+    return (tuple(a.parms_id) == tuple(b.parms_id) and len(a.keys) == len(b.keys)
+            and all((x is None and y is None) or (x is not None and y is not None
+                                                   and torch.equal(x, y))
+                    for x, y in zip(a.keys, b.keys)) and a.seeds == b.seeds)
+
+
+def wire(record, name, obj, obj_cpu, ctx, mode):
+    """obj through save -> bytes -> load onto ctx's device: the bytes equal
+    those of its CPU copy, the loaded object equals obj, and valcheck holds
+    it valid and a copy with one residue set to q invalid. record[name]
+    gets the bytes and the ms and MB/s of the save and of the load."""
+    import torch
+
+    from seal_tpu_torch import Ciphertext, PublicKey, serialization, valcheck
+
+    load = (serialization.load_ciphertext if isinstance(obj, Ciphertext)
+            else serialization.load_public_key if isinstance(obj, PublicKey)
+            else serialization.load_relin_keys if type(obj).__name__ == "RelinKeys"
+            else serialization.load_galois_keys)
+    t0 = time.perf_counter()
+    blob = obj.save(mode)
+    save_s = time.perf_counter() - t0
+    require(blob == obj_cpu.save(mode), f"wire {name}: card bytes equal the CPU copy's")
+    t0 = time.perf_counter()
+    loaded = load(ctx, blob)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(same_object(loaded, obj), f"wire {name}: the loaded object equals the original")
+    require(valcheck.is_valid_for(loaded, ctx), f"wire {name}: valcheck holds it valid")
+    require(not valcheck.is_valid_for(spoiled(loaded, ctx), ctx),
+            f"wire {name}: valcheck refuses a residue set to q")
+    record[name] = {"bytes": len(blob), "mode": mode.name, "save_ms": save_s * 1e3,
+                    "load_ms": load_s * 1e3, "save_mb_per_s": len(blob) / 1e6 / save_s,
+                    "load_mb_per_s": len(blob) / 1e6 / load_s}
+    return loaded
+
+
+def phase_wire(config, o, o_cpu):
+    """The threshold phase's objects across the wire (ZLIB; zstd where
+    `zstandard` imports would be the same calls): each partial before
+    aggregation, each party's Galois share and the common public key; for
+    the CKKS configuration also a save_seed relinearization key and a
+    seeded symmetric ciphertext of phase 8's α=1 keys, each about half its
+    unseeded twin."""
+    import torch
+
+    from seal_tpu_torch import ComprMode, Encryptor, KeyGenerator
+
+    start = time.perf_counter()
+    mode = ComprMode.ZLIB
+    ctx = o["decs"][0].context
+    record = {}
+    loaded = [wire(record, f"partial{i}", o["partials"][i], o_cpu["partials"][i], ctx, mode)
+              for i in range(PARTIES)]
+    aggregate = o["decs"][0].aggregate_partial_decryption(o["rot"], loaded)
+    require(torch.equal(aggregate.data, o["aggregate"].data),
+            f"wire {config}: the partials after the wire aggregate to the same plaintext")
+    for i in range(PARTIES):
+        wire(record, f"galois_share{i}", o["gks"][i], o_cpu["gks"][i], ctx, mode)
+    wire(record, "common_public_key", o["cpk"], o_cpu["cpk"], ctx, mode)
+    ratios = {}
+    if THRESHOLD[config]["scheme"] == "CKKS":
+        spec = MODES["alpha1_parity"]
+        pair = contexts(spec, seed_words(SEED + 2))
+        kgs = [KeyGenerator(c) for c in pair]
+        rks = [kg.create_relin_keys(save_seed=True) for kg in kgs]
+        wire(record, "relin_key_seeded", rks[0], rks[1], pair[0], mode)
+        wire(record, "relin_key", kgs[0].create_relin_keys(), kgs[1].create_relin_keys(),
+             pair[0], mode)
+        encs = [Encryptor(c, kg.create_public_key(), kg.secret_key())
+                for c, kg in zip(pair, kgs)]
+        plains = [o["plain"], o_cpu["plain"]]      # at the same 8-prime level
+        cts = [e.encrypt_symmetric(p, save_seed=True) for e, p in zip(encs, plains)]
+        wire(record, "symmetric_ct_seeded", cts[0], cts[1], pair[0], mode)
+        wire(record, "symmetric_ct", encs[0].encrypt_symmetric(plains[0]),
+             encs[1].encrypt_symmetric(plains[1]), pair[0], mode)
+        for what in ("relin_key", "symmetric_ct"):
+            ratios[what] = record[f"{what}_seeded"]["bytes"] / record[what]["bytes"]
+            require(0.45 <= ratios[what] <= 0.55,
+                    f"wire: a seeded {what} is about half its unseeded twin ({ratios[what]})")
+    emit({"phase": "wire", "config": config, "n": N, "bytes_card_eq_cpu": True,
+          "loaded_equal": True, "valcheck": True, "seeded_ratio": ratios, "objects": record,
+          "phase_s": time.perf_counter() - start})
+
+
 def device_profile(fn):
     """One call of fn under torch.profiler, after one call untraced: the
     CUDA kernels and copies it ran, their summed device time, and the span
@@ -1263,6 +1637,10 @@ def main() -> int:
         add_counts(total, phase_batch(mode, spec))
     for scheme in (SchemeType.BFV, SchemeType.BGV):
         add_counts(total, phase_exact_batch(scheme))
+    for config in THRESHOLD:
+        counts, flow, flow_cpu = phase_threshold(config)
+        add_counts(total, counts)
+        phase_wire(config, flow, flow_cpu)
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
     phase_ntt_passes(ntt_runs)

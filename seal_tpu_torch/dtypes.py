@@ -31,10 +31,17 @@ class Plaintext:
     """CKKS: an RNS poly [L, N] in NTT form, with its level's parms_id and a
     scale. BFV/BGV: at most N coefficients mod t [<= N], in coefficient
     form, with no parms_id (SEAL plaintext.h). A batch has leading
-    dimensions: [*batch, L, N] or [*batch, <= N]."""
+    dimensions: [*batch, L, N] or [*batch, <= N].
 
-    def __init__(self, data: torch.Tensor | None = None,
-                 parms_id: ParmsId = PARMS_ID_ZERO, scale: float = 1.0):
+    Plaintext(coeff_count) is seal_tpu's constructor: that many zero
+    coefficients, on CUDA unless `device` names another device. The count
+    and comparison methods read the tensor on its own device, one sync
+    each."""
+
+    def __init__(self, data: torch.Tensor | int | None = None,
+                 parms_id: ParmsId = PARMS_ID_ZERO, scale: float = 1.0, device=None):
+        if isinstance(data, int):
+            data = torch.zeros(data, dtype=torch.int64, device=resolve_device(device))
         self.data = data
         self.parms_id = parms_id
         self.scale = scale
@@ -42,6 +49,58 @@ class Plaintext:
     @property
     def is_ntt_form(self) -> bool:
         return self.parms_id != PARMS_ID_ZERO
+
+    @property
+    def coeff_count(self) -> int:
+        """Coefficients per polynomial: N in NTT form, else the vector's length."""
+        return 0 if self.data is None else self.data.shape[-1]
+
+    def set_values(self, values):
+        """Coefficient-form values mod t (ints below 2^64), on the device of
+        the current data, else on CUDA."""
+        where = self.data.device if self.data is not None else resolve_device(None)
+        arr = np.asarray(values, dtype=np.uint64).reshape(-1)
+        self.data = torch.from_numpy(arr.view(np.int64).copy()).to(where)
+
+    def significant_coeff_count(self) -> int:
+        """Index of the last nonzero word plus one, 0 when all are zero; in
+        NTT form over the L·N words, as SEAL's (plaintext.h)."""
+        if self.data is None or self.data.numel() == 0:
+            return 0
+        flat = self.data.reshape(-1)
+        pos = torch.arange(1, flat.numel() + 1, device=flat.device)
+        return int(torch.where(flat != 0, pos, 0).max())
+
+    def nonzero_coeff_count(self) -> int:
+        """Nonzero words, over the L·N words in NTT form (as SEAL's)."""
+        return 0 if self.data is None else int(torch.count_nonzero(self.data))
+
+    def set_zero(self):
+        """Every coefficient to zero; the shape, level and scale stay."""
+        if self.data is not None:
+            self.data = torch.zeros_like(self.data)
+
+    def is_zero(self) -> bool:
+        return self.data is None or not bool(self.data.any())
+
+    def __eq__(self, other):
+        """Coefficient form: the same values, the shorter one padded with
+        zeros (seal_tpu). NTT form: the same level, scale and words."""
+        if not isinstance(other, Plaintext):
+            return NotImplemented
+        if self.is_ntt_form or other.is_ntt_form:
+            return (tuple(self.parms_id) == tuple(other.parms_id)
+                    and self.scale == other.scale
+                    and self.data.shape == other.data.shape
+                    and bool(torch.equal(self.data, other.data.to(self.data.device))))
+        a = self.data if self.data is not None else torch.zeros(0, dtype=torch.int64)
+        b = other.data if other.data is not None else torch.zeros(0, dtype=torch.int64)
+        b = b.to(a.device)
+        n = max(a.shape[-1], b.shape[-1])
+        pad = torch.nn.functional.pad
+        return bool(torch.equal(pad(a, (0, n - a.shape[-1])), pad(b, (0, n - b.shape[-1]))))
+
+    __hash__ = None
 
     def to_numpy(self) -> np.ndarray:
         return u64_numpy(self.data)

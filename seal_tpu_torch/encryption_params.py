@@ -149,6 +149,14 @@ class EncryptionParameters:
         p._compute_parms_id()
         return p
 
+    def __eq__(self, other):
+        """Equal parms_id: scheme, n, coeff_modulus and plain_modulus (seed,
+        prng type and α are not part of it, as in seal_tpu)."""
+        return isinstance(other, EncryptionParameters) and self._parms_id == other._parms_id
+
+    def __hash__(self):
+        return hash(self._parms_id)
+
     def __repr__(self):
         return (
             f"EncryptionParameters(scheme={self._scheme.name}, "

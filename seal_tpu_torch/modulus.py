@@ -22,6 +22,7 @@ COEFF_MOD_COUNT_MAX = 64
 COEFF_MOD_COUNT_MIN = 1
 POLY_MOD_DEGREE_MAX = 131072
 POLY_MOD_DEGREE_MIN = 2
+CIPHERTEXT_SIZE_MIN = 2
 CIPHERTEXT_SIZE_MAX = 16
 
 
@@ -34,6 +35,7 @@ class SecLevelType(enum.IntEnum):
     TC256 = 256
 
 
+@functools.total_ordering
 @dataclass(frozen=True)
 class Modulus:
     """An up-to-61-bit modulus (SEAL modulus.h)."""
@@ -48,6 +50,15 @@ class Modulus:
     def __int__(self) -> int:
         return self.value
 
+    def reduce(self, x: int) -> int:
+        """x mod the modulus."""
+        return x % self.value
+
+    @property
+    def is_zero(self) -> bool:
+        return self.value == 0
+
+    # comparisons by value against a Modulus or an int (modulus.h:315-381)
     def __eq__(self, other) -> bool:
         if isinstance(other, Modulus):
             return self.value == other.value
@@ -57,6 +68,11 @@ class Modulus:
 
     def __hash__(self) -> int:
         return hash(self.value)
+
+    def __lt__(self, other):
+        if not isinstance(other, (Modulus, int)):
+            return NotImplemented
+        return self.value < int(other)
 
     def __repr__(self) -> str:
         return f"Modulus({self.value:#x})"

@@ -177,7 +177,7 @@ def _one_or_batch(host: np.ndarray, count):
 
 def encrypt_zero_symmetric(secret_key, context: SEALContext, cd: ContextData,
                            is_ntt_form: bool = True, save_seed: bool = False,
-                           count: int | None = None):
+                           count: int | None = None, c1_override=None):
     """SEAL's symmetric encryption of zero at level cd (rlwe.cpp:415-545):
     (c0, c1) = (-(a·s + e), a), with e times t for BGV. A bootstrap stream
     gives the seed of a second stream, which draws a; e comes from the
@@ -185,28 +185,42 @@ def encrypt_zero_symmetric(secret_key, context: SEALContext, cd: ContextData,
     c1; in coefficient form it is read as the NTT form and c1 leaves
     through the inverse NTT, unless save_seed, where a is the coefficient
     form itself (the seed then regenerates c1). Returns ([2, L, N], (prng
-    type, seed of a)); with count=B, ([B, 2, L, N], [B seeds])."""
+    type, seed of a)); with count=B, ([B, 2, L, N], [B seeds]).
+
+    c1_override, an NTT-form [L, N] tensor, is the fork's
+    encrypt_zero_symmetric_with_c1 (rlwe.cpp:276-413): it takes the place
+    of a, which is then not sampled, but the bootstrap stream still gives
+    its 64-byte seed before the noise, so e is the noise of an unshared
+    encryption."""
     moduli = cd.key_moduli()
     n = cd.parms.poly_modulus_degree
     mc, tables = cd.mod_consts, cd.ntt_tables
     prng_type = context.key_context_data().parms.prng_type
+    if c1_override is not None and count is not None:
+        raise ValueError("c1_override encrypts one zero, not a batch")
     seeds, a_host, e_host = [], [], []
     for _ in range(_members(count)):
         bootstrap = prng_for(context)
         public_seed = tuple(np.frombuffer(
             bootstrap.generate(randomgen.PRNG_SEED_BYTE_COUNT), dtype="<u8").tolist())
-        a_host.append(sample_poly_uniform(
-            randomgen.UniformRandomGeneratorFactory(prng_type).create(public_seed), moduli, n))
+        if c1_override is None:
+            a_host.append(sample_poly_uniform(
+                randomgen.UniformRandomGeneratorFactory(prng_type).create(public_seed),
+                moduli, n))
         e_host.append(cbd_values(bootstrap, n))
         seeds.append((int(prng_type), public_seed))
-    # a (below q < 2^61, so its int64 view is its value) and the signed
-    # noise rows of the whole batch in one transfer
-    draws = np.concatenate([np.stack(a_host).view(np.int64),
-                            np.stack(e_host)[:, None, :]], axis=1)
-    draws = torch.from_numpy(_one_or_batch(draws, count)).to(context.device)
     L = len(moduli)
-    a, e = draws[..., :L, :], draws[..., L:, :]
-    if is_ntt_form or not save_seed:
+    if c1_override is None:
+        # a (below q < 2^61, so its int64 view is its value) and the signed
+        # noise rows of the whole batch in one transfer
+        draws = np.concatenate([np.stack(a_host).view(np.int64),
+                                np.stack(e_host)[:, None, :]], axis=1)
+        draws = torch.from_numpy(_one_or_batch(draws, count)).to(context.device)
+        a, e = draws[..., :L, :], draws[..., L:, :]
+    else:
+        a = c1_override
+        e = torch.from_numpy(e_host[0][None]).to(context.device)
+    if is_ntt_form or not save_seed or c1_override is not None:
         c1_ntt = a
         c1 = a if is_ntt_form else ntt_mod.ntt_inverse(a, tables)
     else:

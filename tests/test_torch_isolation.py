@@ -61,7 +61,9 @@ def test_every_module_listed():
             "seal_tpu_torch.dtypes", "seal_tpu_torch.ckks", "seal_tpu_torch.encryptor",
             "seal_tpu_torch.decryptor", "seal_tpu_torch.rlwe", "seal_tpu_torch.plain_lift",
             "seal_tpu_torch.ops.hybrid_keyswitch", "seal_tpu_torch.ops.compose",
-            "seal_tpu_torch.utils.dwt"} <= set(MODULES)
+            "seal_tpu_torch.utils.dwt", "seal_tpu_torch.serialization",
+            "seal_tpu_torch.valcheck", "seal_tpu_torch.keygenerator",
+            "seal_tpu_torch.modulus", "seal_tpu_torch.encryption_params"} <= set(MODULES)
 
 
 def _parms():

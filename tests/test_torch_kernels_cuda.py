@@ -583,3 +583,157 @@ def test_exact_batch_on_card_matches_sequential(scheme):
     for p, ct in zip(many, cts):
         assert torch.equal(p.data, dec.decrypt(ct).data)
     assert np.array_equal(be.decode_many(many).cpu().numpy(), values)
+
+
+def _threshold_contexts(scheme, n, device=None):
+    """Three parties' contexts at n, each with its own seed (10 + i, 2, ...,
+    8): BFV with a 20-bit batching t, CKKS at α = 1."""
+    out = []
+    for i in range(3):
+        parms = st.EncryptionParameters(st.SchemeType[scheme])
+        parms.set_poly_modulus_degree(n)
+        parms.set_coeff_modulus(st.CoeffModulus.create(n, [50] * 4 + [60]))
+        if scheme == "BFV":
+            parms.set_plain_modulus(st.PlainModulus.batching(n, 20))
+        parms.set_random_seed((10 + i, 2, 3, 4, 5, 6, 7, 8))
+        out.append(st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device=device))
+    return out
+
+
+def _threshold_flow(ctxs, values):
+    """Party keys -> shared-c1 public keys -> Galois shares under party 0's
+    c1 -> common keys -> encrypt under the common key -> rotate under the
+    aggregated keys (flag off and on) -> partials -> aggregate."""
+    from seal_tpu_torch.config import config
+
+    ckks = ctxs[0].key_context_data().parms.scheme == st.SchemeType.CKKS
+    kgs = [st.KeyGenerator(c) for c in ctxs]
+    sks = [kg.generate_secret_key() for kg in kgs]
+    pks = [kgs[0].create_public_key_with_sk(sks[0])]
+    pks += [kgs[i].create_public_key_with_same_c1(sks[i], pks[0]) for i in (1, 2)]
+    n = ctxs[0].key_context_data().parms.poly_modulus_degree
+    elts = [3] + ([] if ckks else [2 * n - 1])
+    gks = [kgs[0].create_galois_keys(elts, secret_key=sks[0])]
+    refs = [gks[0].key(e)[:, 1] for e in elts]
+    gks += [kgs[i].create_galois_keys(elts, secret_key=sks[i], c1_refs_per_elt=refs)
+            for i in (1, 2)]
+    cpk, csk = kgs[0].create_common_public_key(pks), kgs[0].create_common_secret_key(sks)
+    common = kgs[0].aggregate_galois_keys(elts, gks)
+    plain = (st.CKKSEncoder(ctxs[0]).encode(values, 2.0 ** 40) if ckks
+             else st.BatchEncoder(ctxs[0]).encode(values))
+    ct = st.Encryptor(ctxs[0], cpk).encrypt(plain)
+    ev = st.Evaluator(ctxs[0])
+    rotate = ((lambda: ev.rotate_vector(ct, 1, common)) if ckks
+              else (lambda: ev.rotate_rows(ct, 1, common)))
+    rot = rotate()
+    config.keyswitch_shoup = True
+    try:
+        rot_shoup = rotate()
+    finally:
+        config.keyswitch_shoup = False
+    decs = [st.Decryptor(c, sk) for c, sk in zip(ctxs, sks)]
+    partials = [d.distributed_decrypt(rot) for d in decs]
+    agg = decs[0].aggregate_partial_decryption(rot, partials)
+    return dict(sks=sks, pks=pks, gks=gks, cpk=cpk, csk=csk, common=common, elts=elts, ct=ct,
+                rot=rot, rot_shoup=rot_shoup, partials=partials, agg=agg, decs=decs)
+
+
+def _threshold_values(scheme, n):
+    rng = np.random.default_rng(n)
+    if scheme == "CKKS":
+        return rng.uniform(-1, 1, n // 2)
+    return rng.integers(0, st.PlainModulus.batching(n, 20).value, n, dtype=np.int64)
+
+
+def _u64(t):
+    return t.cpu().numpy().view(np.uint64)
+
+
+@pytest.mark.parametrize("scheme", ["BFV", "CKKS"])
+def test_threshold_flow_on_card_matches_cpu(scheme):
+    """The fork's threshold flow at n = 4096, three parties: every key,
+    Galois share, ciphertext, partial and aggregate made on the card equals
+    the plain path's on CPU contexts from the same seeds; the aggregate
+    equals the common secret key's decryption and decodes to the rotated
+    slots; K1, K2 and K3 each launched; smudged partials (20 bits) still
+    decode (BFV exactly, CKKS within 1e-3)."""
+    n = 4096
+    values = _threshold_values(scheme, n)
+    cuda.reset_launches()
+    card = _threshold_flow(_threshold_contexts(scheme, n), values)
+    torch.cuda.synchronize()
+    assert all(cuda.launches[k] > 0 for k in cuda.launches), dict(cuda.launches)
+    cpu = _threshold_flow(_threshold_contexts(scheme, n, device="cpu"), values)
+    for name in ("cpk", "csk", "ct", "rot", "rot_shoup", "agg"):
+        np.testing.assert_array_equal(card[name].to_numpy(), cpu[name].to_numpy(), err_msg=name)
+    for i in range(3):
+        for name in ("sks", "pks", "partials"):
+            np.testing.assert_array_equal(card[name][i].to_numpy(), cpu[name][i].to_numpy(),
+                                          err_msg=f"{name}{i}")
+        for e in card["elts"]:
+            np.testing.assert_array_equal(_u64(card["gks"][i].key(e)),
+                                          _u64(cpu["gks"][i].key(e)))
+    for e in card["elts"]:
+        np.testing.assert_array_equal(_u64(card["common"].key(e)), _u64(cpu["common"].key(e)))
+    np.testing.assert_array_equal(card["rot"].to_numpy(), card["rot_shoup"].to_numpy())
+    ctx = card["decs"][0].context
+    direct = st.Decryptor(ctx, card["csk"]).decrypt(card["rot"])
+    assert torch.equal(direct.data, card["agg"].data)
+    smudged = [d.distributed_decrypt(card["rot"], 20) for d in card["decs"]]
+    agg_smudged = card["decs"][0].aggregate_partial_decryption(card["rot"], smudged)
+    if scheme == "CKKS":
+        encoder = st.CKKSEncoder(ctx)
+        want = np.roll(values, -1)
+        assert np.abs(encoder.decode(card["agg"]).cpu().numpy() - want).max() < 1e-4
+        assert np.abs(encoder.decode(agg_smudged).cpu().numpy() - want).max() < 1e-3
+    else:
+        be = st.BatchEncoder(ctx)
+        want = np.roll(values.reshape(2, n // 2), -1, axis=1).reshape(-1)
+        np.testing.assert_array_equal(be.decode(card["agg"]).cpu().numpy(), want)
+        np.testing.assert_array_equal(be.decode(agg_smudged).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("scheme", ["BFV", "CKKS"])
+def test_wire_round_trip_on_card(scheme):
+    """The threshold objects at n = 4096 through save (ZLIB) -> load onto
+    the card: the card's bytes equal the CPU copy's, each load equals the
+    original and is valid, and a copy with one residue set to q is not; a
+    save_seed relinearization key is about half its unseeded twin."""
+    from seal_tpu_torch import serialization as ser
+    from seal_tpu_torch import valcheck
+
+    n = 4096
+    values = _threshold_values(scheme, n)
+    ctxs, ctxs_cpu = _threshold_contexts(scheme, n), _threshold_contexts(scheme, n, "cpu")
+    card, cpu = _threshold_flow(ctxs, values), _threshold_flow(ctxs_cpu, values)
+    mode = ser.ComprMode.ZLIB
+    cases = [(p, q, ser.load_ciphertext) for p, q in zip(card["partials"], cpu["partials"])]
+    cases += [(g, h, ser.load_galois_keys) for g, h in zip(card["gks"], cpu["gks"])]
+    cases += [(card["cpk"], cpu["cpk"], ser.load_public_key)]
+    loaded = []
+    for obj, obj_cpu, load in cases:
+        blob = obj.save(mode)
+        assert blob == obj_cpu.save(mode)
+        back = load(ctxs[0], blob)
+        assert valcheck.is_valid_for(back, ctxs[0])
+        loaded.append(back)
+        if isinstance(back, st.GaloisKeys):
+            for e in card["elts"]:
+                assert torch.equal(back.key(e), obj.key(e))
+                assert back.key(e).device.type == ctxs[0].device.type == "cuda"
+            back.keys[(card["elts"][0] - 1) // 2][0, 0, 0, 0] = ctxs[0].key_context_data() \
+                .key_moduli()[0]
+        else:
+            ct = back.data if isinstance(back, st.PublicKey) else back
+            want = obj.data if isinstance(obj, st.PublicKey) else obj
+            assert torch.equal(ct.data, want.data)
+            assert ct.data.device.type == ctxs[0].device.type == "cuda"
+            ct.data[0, 0, 0] = ctxs[0].key_context_data().key_moduli()[0]
+        assert not valcheck.is_valid_for(back, ctxs[0])
+    kg = st.KeyGenerator(ctxs[0])
+    seeded, plain_rk = kg.create_relin_keys(save_seed=True), kg.create_relin_keys()
+    blob = seeded.save(mode)
+    assert 0.45 < len(blob) / len(plain_rk.save(mode)) < 0.55
+    back = ser.load_relin_keys(ctxs[0], blob)
+    assert torch.equal(back.keys[0], seeded.keys[0]) and back.seeds == seeded.seeds
+    assert back.save(mode) == blob
