@@ -6,9 +6,12 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. build: compile every CUDA kernel from seal_tpu_torch/csrc (one nvcc per
-   source, started together); then the host rate of one bulk draw from
-   SEAL's seeded blake2xb byte stream (seal_tpu_torch/randomgen.py), which
-   every key and encryption below draws from.
+   source, started together) and the host byte stream's C++ (g++,
+   seal_tpu_torch/native.py); then the host rate of one bulk draw of 16 MB
+   from SEAL's seeded blake2xb byte stream (seal_tpu_torch/randomgen.py over
+   the C++ XOF), which every key and encryption below draws from, beside
+   the rate of its plain version (the numpy XOF) on the same bytes, which
+   must be equal.
 2. K1 (the NTT kernel, forward and inverse) at N=16384 at every shape the
    paths below give it (1 to 72 rows: the CKKS towers, BFV's auxiliary
    base Bsk of 61-bit primes with forward inputs up to 4q, the [8, 9, N]
@@ -101,10 +104,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    it valid and refuse a copy with one residue set to q, and each seeded
    object be about half its twin; bytes, ms and MB/s of every save and
    load.
-13. K1 passes: the device time of each of K1's two kernels at phase 2's
+13. graphs (seal_tpu_torch/jit.py), in both CKKS modes at phase 5's
+   parameters, with the Shoup flag off and on, at B = 1 (one unbatched
+   ciphertext) and 16: bench.py's pipeline through a JitEvaluator (one CUDA
+   graph per op) and bench.py's `one` under jit.capture (one graph), each
+   call on random ciphertexts held bit for bit against the eager Evaluator
+   on the card, the first call capturing and the later ones replaying, and
+   the launches of every replay equal to the eager call's; host-clock ms
+   per call and per ciphertext, eager against replayed (median of 20,
+   synchronised), the device-busy share of one replay (torch.profiler,
+   flag off), the cache sizes and the graph pools' device memory; then a
+   second relinearization key of the same shapes, which must give its own
+   eager result. Then phase 7's BFV path (multiply -> relinearize ->
+   mod_switch_to_next -> rotate_rows(1)) through a JitEvaluator, the same
+   way.
+14. examples: examples_torch/8_performance.py and
+   13_streaming_pipeline.py at the originals' default sizes on the card;
+   each checks its own results.
+15. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-14. kernels: one JSON line with every ported kernel, its check and times.
+16. kernels: one JSON line with every ported kernel, its check and times;
+   its launches count every launch of the paths, graph replays included.
 
 Phases 3 and 4 also hold K2 and K3 over a batch [16, J, I, N] that shares
 one key, at both modes' (J, I), against their plain versions.
@@ -121,6 +142,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -936,7 +958,7 @@ def phase_exact(scheme):
 
 ROUND_TRIP_SCALE = 2.0 ** 40
 DECODE_BOUND = 1e-4             # |decoded - v1·v2| allowed
-PRNG_RATE_BYTES = 32 << 20
+PRNG_RATE_BYTES = 16 << 20
 
 
 def unit_disc(rng, count):
@@ -1050,8 +1072,9 @@ def batch_timings(run, single, batch):
     """Per B of BATCH_SIZES, flag off and on: the launches of one call of
     run(x) (which must equal one ciphertext's), the host-clock ms per batch
     and per ciphertext (median of 5, synchronised), and the device-busy
-    share of one call under torch.profiler. x is `single` for B = 1, else
-    the first B members of `batch`."""
+    share of one call under torch.profiler, whose kernels counted by name
+    must equal the launches counted. x is `single` for B = 1, else the
+    first B members of `batch`."""
     import torch
 
     from seal_tpu_torch.config import config
@@ -1069,6 +1092,9 @@ def batch_timings(run, single, batch):
                 require(launches == base, f"B={B}: launches per batch equal one ciphertext's")
                 ms = host_ms(lambda: (run(x), torch.cuda.synchronize()), reps=5)
                 prof = device_profile(lambda: run(x))
+                require(prof["kernels"] == launches, f"B={B}: the kernels traced by name "
+                                                     f"{prof['kernels']} equal the counted "
+                                                     f"launches {launches}")
                 out[f"B{B}_{'shoup' if shoup else 'k2'}"] = {
                     "launches": launches, "ms_per_batch": ms, "ms_per_ciphertext": ms / B,
                     "device_busy_share": (prof["device_busy_ms"] / prof["device_span_ms"]
@@ -1570,11 +1596,220 @@ def phase_wire(config, o, o_cpu):
           "phase_s": time.perf_counter() - start})
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the ops replayed from CUDA graphs (jit.py) and the
+# ported examples
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCHES = (1, BATCH)      # B = 1 is one unbatched ciphertext
+GRAPH_REPS = 20
+GRAPH_SEED = SEED + 5
+
+
+def random_ciphertext(ctx, batch, rng, ntt):
+    """A size-2 ciphertext at the first level with random residues: the
+    ops compute the same whatever it encrypts. [2, L, N] for batch 1, else
+    [batch, 2, L, N]."""
+    from seal_tpu_torch import Ciphertext
+
+    cd = ctx.first_context_data()
+    shape = ((batch,) if batch > 1 else ()) + (2, cd.coeff_modulus_size, N)
+    data = random_residues(shape, cd.key_moduli(), rng).to(ctx.device)
+    return Ciphertext(data, tuple(cd.parms_id), ntt, 2.0 ** 40 if ntt else 1.0)
+
+
+def same_result(a, b) -> bool:
+    """Tensors, ciphertexts or lists of them equal in bits and metadata."""
+    import torch
+
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_result(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return (torch.equal(a.data, b.data) and tuple(a.parms_id) == tuple(b.parms_id)
+            and (a.is_ntt_form, a.scale, a.correction_factor)
+            == (b.is_ntt_form, b.scale, b.correction_factor))
+
+
+def graph_case(name, eager, jitted, inputs, batch, total):
+    """`jitted` (a JitEvaluator pipeline or a jit.capture) on each input of
+    `inputs` in turn (the first call captures, the later ones replay)
+    against `eager` on the same inputs: bit for bit, and the launches of
+    every call equal to the eager call's. A replay counts the launches its
+    kernel wrappers counted while its graph was captured, so one replay is
+    also traced with torch.profiler, and the kernels the card ran, counted
+    by name, must equal the eager call's launches. Then host-clock ms per
+    call and per ciphertext, eager against replayed (medians of GRAPH_REPS
+    synchronised calls on the first inputs), and the device-busy share of
+    the traced replay. Every launch is added to `total`."""
+    import torch
+
+    for args in inputs + inputs[:1]:
+        want, launches = counted(lambda: eager(*args))
+        got, replayed = counted(lambda: jitted(*args))
+        require(same_result(got, want), f"graphs {name}: replayed output bit-identical "
+                                        "to the eager one")
+        require(replayed == launches, f"graphs {name}: launches per replay {replayed} "
+                                      f"equal the eager call's {launches}")
+        add_counts(add_counts(total, launches), replayed)
+    eager_ms = host_ms(lambda: (eager(*inputs[0]), torch.cuda.synchronize()), GRAPH_REPS)
+    replay_ms = host_ms(lambda: (jitted(*inputs[0]), torch.cuda.synchronize()), GRAPH_REPS)
+    prof = device_profile(lambda: jitted(*inputs[0]))
+    require(prof["kernels"] == launches, f"graphs {name}: the kernels traced in a replay "
+                                         f"{prof['kernels']} equal the eager call's "
+                                         f"launches {launches}")
+    return {"launches": launches, "traced_replay_kernels": prof["kernels"],
+            "eager_ms": eager_ms, "replay_ms": replay_ms,
+            "eager_ms_per_ciphertext": eager_ms / batch,
+            "replay_ms_per_ciphertext": replay_ms / batch, "speedup": eager_ms / replay_ms,
+            "replay_device_busy_share": prof["device_busy_ms"] / prof["device_span_ms"],
+            "replay_profile": prof}
+
+
+def graph_context(spec, seed):
+    from seal_tpu_torch import CoeffModulus, EncryptionParameters, SchemeType, SEALContext
+
+    parms = EncryptionParameters(SchemeType.CKKS)
+    parms.set_poly_modulus_degree(N)
+    parms.set_coeff_modulus(CoeffModulus.create(N, spec["bits"]))
+    parms.set_special_modulus_size(spec["alpha"])
+    parms.set_random_seed(seed_words(seed))
+    return SEALContext(parms)
+
+
+def phase_graphs(mode, spec):
+    """bench.py's pipeline in one CKKS mode, flag off and on, at B = 1 and
+    16: through a JitEvaluator (one graph per op) and as bench.py's `one`
+    under jit.capture (one graph), each replay against the eager Evaluator
+    on the card; then a second relinearization key of the same shapes."""
+    import numpy as np
+
+    from seal_tpu_torch import Ciphertext, Evaluator, KeyGenerator, jit
+    from seal_tpu_torch.config import config
+
+    t0 = time.perf_counter()
+    ctx = graph_context(spec, GRAPH_SEED)
+    rng = np.random.default_rng(GRAPH_SEED)
+    rk = KeyGenerator(ctx).create_relin_keys()
+    rk2 = KeyGenerator(graph_context(spec, GRAPH_SEED + 1)).create_relin_keys()
+    ev, fused = Evaluator(ctx), spec["fused"]
+    inputs = {B: [tuple(random_ciphertext(ctx, B, rng, True) for _ in range(2))
+                  for _ in range(2)] for B in GRAPH_BATCHES}
+    proto = inputs[1][0][0]
+
+    def one(x, y):
+        """bench.py's `one`, its jax.vmap the leading axis of x and y."""
+        ca, cb = (Ciphertext(d, proto.parms_id, True, proto.scale) for d in (x, y))
+        return run_mode(ev, fused, ca, cb, rk).data
+
+    total, cases = {}, {}
+    for shoup in (False, True):
+        config.keyswitch_shoup = shoup
+        try:
+            jev, step = jit.JitEvaluator(ctx), jit.capture(one)
+            flag = "shoup" if shoup else "k2"
+            for B in GRAPH_BATCHES:
+                cases[f"jit_B{B}_{flag}"] = graph_case(
+                    f"{mode} JitEvaluator B={B} {flag}",
+                    lambda x, y: run_mode(ev, fused, x, y, rk),
+                    lambda x, y: run_mode(jev, fused, x, y, rk), inputs[B], B, total)
+                data = [tuple(c.data.reshape((B,) + c.data.shape[-3:]) for c in pair)
+                        for pair in inputs[B]]
+                cases[f"capture_B{B}_{flag}"] = graph_case(
+                    f"{mode} capture B={B} {flag}", one, step, data, B, total)
+            # a second key of the same shapes gets its own graph and result
+            for x, y in inputs[1]:
+                prod = ev.multiply(x, y)
+                for key in (rk, rk2, rk):
+                    require(same_result(jev.relinearize(prod, key), ev.relinearize(prod, key)),
+                            f"graphs {mode} {flag}: each relinearization key its own result")
+            require(not same_result(ev.relinearize(prod, rk), ev.relinearize(prod, rk2)),
+                    f"graphs {mode}: the two keys give different results")
+            cases[f"cache_{flag}"] = {"jit_cache_size": jev.cache_size(),
+                                      "capture_cache_size": step.cache_size(),
+                                      "jit_pool_bytes": jev.pool_bytes(),
+                                      "capture_pool_bytes": step.pool_bytes()}
+        finally:
+            config.keyswitch_shoup = False
+    emit({"phase": "graphs", "mode": mode, "n": N, "data_primes": 8,
+          "special_primes": spec["alpha"], "bit_exact_vs_eager": True,
+          "second_key_own_result": True, "launches_equal_eager": True, "cases": cases,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def phase_graphs_exact():
+    """Phase 7's BFV path through a JitEvaluator: multiply -> relinearize ->
+    mod_switch_to_next -> rotate_rows(1), each op a graph, replays against
+    the eager Evaluator on the card."""
+    import numpy as np
+
+    from seal_tpu_torch import Evaluator, KeyGenerator, SchemeType, jit
+
+    t0 = time.perf_counter()
+    ctx, _ = exact_contexts(SchemeType.BFV)
+    rng = np.random.default_rng(GRAPH_SEED)
+    kg = KeyGenerator(ctx)
+    rk, gk = kg.create_relin_keys(), kg.create_galois_keys(steps=[1])
+    ev, jev = Evaluator(ctx), jit.JitEvaluator(ctx)
+
+    def chain(e, x, y):
+        prod = e.multiply(x, y)
+        relin = e.relinearize(prod, rk)
+        down = e.mod_switch_to_next(relin)
+        return [prod, relin, down, e.rotate_rows(down, 1, gk)]
+
+    inputs = [tuple(random_ciphertext(ctx, 1, rng, False) for _ in range(2))
+              for _ in range(2)]
+    total = {}
+    line = graph_case("BFV JitEvaluator", lambda x, y: chain(ev, x, y),
+                      lambda x, y: chain(jev, x, y), inputs, 1, total)
+    emit({"phase": "graphs_exact", "scheme": "BFV", "n": N, "bit_exact_vs_eager": True,
+          "launches_equal_eager": True, **line, "jit_cache_size": jev.cache_size(),
+          "jit_pool_bytes": jev.pool_bytes(), "seconds": time.perf_counter() - t0})
+    return total
+
+
+EXAMPLES = ("8_performance.py", "13_streaming_pipeline.py")
+
+
+def phase_examples():
+    """The examples ported to the port (examples_torch/) at the originals'
+    default sizes, on the card; each checks its own results."""
+    import importlib.util
+    import pathlib
+
+    total = {}
+    for name in EXAMPLES:
+        path = pathlib.Path(__file__).resolve().parent / "examples_torch" / name
+        spec = importlib.util.spec_from_file_location(name[:-3], path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        t0 = time.perf_counter()
+        _, launches = counted(module.main)
+        emit({"phase": "examples", "example": name, "seconds": time.perf_counter() - t0,
+              "launches": launches})
+        add_counts(total, launches)
+    return total
+
+
+# each K1/K2/K3 wrapper's kernel by name, demangled or mangled: one K1
+# transform runs one chunk pass (ntt_pass_kernel<inverse, column=false, M>),
+# and for n > 512 a column pass as well
+TRACED_KERNELS = {
+    "ntt_forward": r"ntt_pass_kernel(<\s*false\s*,\s*false\s*,|ILb0ELb0E)",
+    "ntt_inverse": r"ntt_pass_kernel(<\s*true\s*,\s*false\s*,|ILb1ELb0E)",
+    "keyswitch_inner": r"keyswitch_inner_kernel",
+    "keyswitch_inner_shoup": r"keyswitch_inner_shoup_kernel",
+}
+
+
 def device_profile(fn):
     """One call of fn under torch.profiler, after one call untraced: the
-    CUDA kernels and copies it ran, their summed device time, and the span
+    CUDA kernels and copies it ran, their summed device time, the span
     from the first one's start to the last one's end (the device's idle
-    share over that span is 1 - busy / span)."""
+    share over that span is 1 - busy / span), and the kernels of each
+    wrapper it ran, counted by name (TRACED_KERNELS)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1585,24 +1820,37 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = {name: sum(1 for e in events if re.search(pattern, e.name))
+               for name, pattern in TRACED_KERNELS.items()}
     if not events:
-        return {"device_events": 0}
+        return {"device_events": 0, "kernels": kernels}
     busy = sum(e.device_time_total for e in events) / 1e3
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3
-    return {"device_events": len(events), "device_busy_ms": busy, "device_span_ms": span}
+    return {"device_events": len(events), "device_busy_ms": busy, "device_span_ms": span,
+            "kernels": kernels}
 
 
 def phase_prng_rate():
-    """The host rate of one bulk draw from a seeded blake2xb stream."""
+    """The host rate of one bulk draw from a seeded blake2xb stream (the
+    native XOF), beside its plain version's (the numpy XOF) on the same
+    bytes."""
+    import struct
+
     from seal_tpu_torch import randomgen
 
     prng = randomgen.Blake2xbPRNG(seed_words(SEED))
     t0 = time.perf_counter()
-    prng.generate(PRNG_RATE_BYTES)
+    got = prng.generate(PRNG_RATE_BYTES)
     seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = randomgen.blake2xb_refills_plain(struct.pack("<8Q", *seed_words(SEED)), 0,
+                                            PRNG_RATE_BYTES // randomgen.BUFFER_SIZE)
+    plain_seconds = time.perf_counter() - t0
+    require(got == want, "the native byte stream equals the numpy XOF's bytes")
     emit({"phase": "prng", "bytes": PRNG_RATE_BYTES, "seconds": seconds,
-          "mb_per_s": PRNG_RATE_BYTES / 1e6 / seconds})
+          "mb_per_s": PRNG_RATE_BYTES / 1e6 / seconds, "plain_seconds": plain_seconds,
+          "plain_mb_per_s": PRNG_RATE_BYTES / 1e6 / plain_seconds, "bytes_equal": True})
 
 
 def main() -> int:
@@ -1611,9 +1859,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from seal_tpu_torch import cuda
+    from seal_tpu_torch import cuda, native
 
-    emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES)})
+    emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES),
+          "native_seconds": native.build(), "native_source": str(native.SOURCE.name)})
     import numpy as np
 
     meter_prng()
@@ -1641,6 +1890,10 @@ def main() -> int:
         counts, flow, flow_cpu = phase_threshold(config)
         add_counts(total, counts)
         phase_wire(config, flow, flow_cpu)
+    for mode, spec in MODES.items():
+        add_counts(total, phase_graphs(mode, spec))
+    add_counts(total, phase_graphs_exact())
+    add_counts(total, phase_examples())
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
     phase_ntt_passes(ntt_runs)

@@ -4,13 +4,16 @@ Each source in csrc/ is compiled by nvcc for sm_90a into a shared library
 with a plain C interface and loaded with ctypes. A library is built at its
 first use into build/seal_tpu_torch/ beside the package (a directory that
 .gitignore lists), under a name that carries a hash of its source and flags,
-so an edited source is never served a stale library.
+so an edited source is never served a stale library. native.py builds the
+host byte stream through the same functions, with g++.
 
 `launches` counts calls of each kernel per wrapper. Only the wrappers in
 ops/ntt.py and ops/keyswitch.py add to it, once per call that launches. A
 key-switch call is one kernel launch. An NTT call is one transform and
 counts once, though it launches one kernel for n <= 512 and two (the column
-and the chunk pass of csrc/ntt.cu) for larger n.
+and the chunk pass of csrc/ntt.cu) for larger n. A CUDA graph replay
+(jit.py) adds the counts its wrappers made while the graph was captured:
+the kernels the graph holds.
 """
 
 from __future__ import annotations
@@ -51,52 +54,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _paths(name: str):
-    src = CSRC / f"{name}.cu"
+def library_path(source: Path, flags: tuple, salt: tuple = ()) -> Path:
+    """Where the library of `source` built with `flags` lives: its name
+    hashes the source, the flags and `salt` (any further text the build
+    depends on)."""
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+        source.read_bytes() + " ".join(flags + salt).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def build(names=SOURCES) -> float:
-    """Compile every library of `names` that is not built yet, one nvcc per
-    source, all started together. Returns the seconds it took; raises with
-    the compiler's output if any build fails."""
+def compile_libraries(jobs) -> float:
+    """Compile each (compiler, source, flags, salt) of `jobs` whose library
+    is not built yet, one process per source, all started together;
+    `compiler` is a function that returns the compiler's path. Returns the
+    seconds it took; raises with the compiler's output if any build fails."""
     start = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in names:
-        src, lib = _paths(name)
+    running = []
+    for compiler, source, flags, salt in jobs:
+        lib = library_path(source, flags, salt)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        exe = compiler()
+        running.append((source, exe, lib, tmp, subprocess.Popen(
+            [exe, *flags, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
-    for name, lib, tmp, proc in jobs:
+    for source, exe, lib, tmp, proc in running:
         out, _ = proc.communicate()
         if proc.returncode:
-            errors.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            errors.append(f"{Path(exe).name} failed on {source.name}:\n"
+                          f"{out.decode(errors='replace')}")
         else:
             os.replace(tmp, lib)
     if errors:
-        raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+        raise RuntimeError("\n".join(errors))
     return time.perf_counter() - start
 
 
+def load(compiler, source: Path, flags: tuple, salt: tuple, signatures: dict):
+    """The library of one job (see compile_libraries), built if need be and
+    loaded with ctypes. Every C entry returns an int; `signatures` maps each
+    entry to its ctypes argument types."""
+    compile_libraries([(compiler, source, flags, salt)])
+    lib = ctypes.CDLL(str(library_path(source, flags, salt)))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _job(name: str):
+    return _nvcc, CSRC / f"{name}.cu", NVCC_FLAGS, ()
+
+
+def build(names=SOURCES) -> float:
+    """Compile every kernel library of `names` that is not built yet, one
+    nvcc per source, all started together (compile_libraries)."""
+    return compile_libraries([_job(name) for name in names])
+
+
 def library(name: str, signatures: dict):
-    """The loaded library of csrc/<name>.cu, built on first use. Every C
-    entry returns an int (a cudaError_t); `signatures` maps each entry to
-    its ctypes argument types."""
+    """The loaded library of csrc/<name>.cu, built on first use; every C
+    entry returns a cudaError_t."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_paths(name)[1]))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = load(*_job(name), signatures)
     return lib
 
 

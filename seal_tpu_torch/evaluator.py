@@ -78,8 +78,11 @@ class Evaluator:
     def _check_transparent(ct: Ciphertext):
         """SEAL_THROW_ON_TRANSPARENT_CIPHERTEXT (evaluator.cpp:1152-1158),
         under config.throw_on_transparent_ciphertext like seal_tpu's; off,
-        the op does not read the device."""
-        if config.throw_on_transparent_ciphertext and ct.is_transparent():
+        the op does not read the device. Skipped while a CUDA graph is
+        being captured (jit.py), as seal_tpu skips it for traced data: the
+        eager call before each capture still checks."""
+        if (config.throw_on_transparent_ciphertext and not _capturing(ct.data)
+                and ct.is_transparent()):
             raise ValueError("result ciphertext is transparent")
 
     def _scheme(self) -> SchemeType:
@@ -125,10 +128,13 @@ class Evaluator:
 
     @staticmethod
     def _scale_by(data, scalar: int, cd: ContextData):
-        """data · scalar mod q_i, every polynomial."""
-        moduli = cd.key_moduli()
-        op, qt = shoup_pair([[scalar % q] for q in moduli], [[q] for q in moduli], data.device)
-        return modarith.mul_mod_shoup(data, op, qt, cd.mod_consts.q)
+        """data · scalar mod q_i, every polynomial. The scalar (a value mod
+        t) and its Shoup quotients are made on the device, so no host copy
+        blocks a CUDA graph capture."""
+        mc = cd.mod_consts
+        op = torch.remainder(torch.full_like(mc.q, scalar), mc.q)
+        qt = modarith.shoup_quotient(op, mc.q, mc.ratio0, mc.ratio1)
+        return modarith.mul_mod_shoup(data, op, qt, mc.q)
 
     def _add_sub(self, a: Ciphertext, b: Ciphertext, sub: bool) -> Ciphertext:
         self._check_same(a, b)
@@ -819,6 +825,11 @@ def _make_inplace(name: str):
 for _name in _INPLACE_METHODS:
     setattr(Evaluator, _name + "_inplace", _make_inplace(_name))
 del _name
+
+
+def _capturing(data: torch.Tensor) -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return data.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _check_plain_batch(ct: Ciphertext, plain: Plaintext):

@@ -143,6 +143,23 @@ def decompose(t_target, digits, per_digit, ext_mc: ModConsts):
     return torch.stack(out, dim=-3)
 
 
+@functools.lru_cache(maxsize=None)
+def _diag_indices(d: int, L: int, dig_of: tuple, device: torch.device):
+    """diag_skip_ntt's index tensors on the device, made once per shape (a
+    host-to-device copy on every call would block a CUDA graph capture):
+    the diagonal mask [d, L, 1]; for d > 1 also the off-diagonal digits of
+    each row [d-1, L, 1] and where each digit lands among them [d, L, 1]."""
+    eye = torch.tensor([[dig_of[i] == j for i in range(L)] for j in range(d)],
+                       device=device)[:, :, None]
+    if d == 1:
+        return eye, None, None
+    jidx = torch.tensor([[j for j in range(d) if j != dig_of[i]] for i in range(L)],
+                        device=device).T.contiguous()[:, :, None]
+    kidx = torch.tensor([[j if j < dig_of[i] else max(j - 1, 0) for i in range(L)]
+                         for j in range(d)], device=device)[:, :, None]
+    return eye, jidx, kidx
+
+
 def diag_skip_ntt(rows, target, lvl_tables: ntt_mod.NTTTables,
                   special_tables: ntt_mod.NTTTables, dig_of: list[int]):
     """Forward NTT of the decomposed rows [..., d, L+α, N] with the CKKS
@@ -156,21 +173,14 @@ def diag_skip_ntt(rows, target, lvl_tables: ntt_mod.NTTTables,
     d, _, n = rows.shape[-3:]
     lead = rows.shape[:-3]
     L = target.shape[-2]
-    dev = rows.device
     out = torch.empty_like(rows)
     out[..., L:, :] = ntt_mod.ntt_forward(rows[..., L:, :], special_tables)
-    eye = torch.tensor([[dig_of[i] == j for i in range(L)] for j in range(d)],
-                       device=dev)[:, :, None]
+    eye, jidx, kidx = _diag_indices(d, L, tuple(dig_of), rows.device)
     if d > 1:
         # the d-1 off-diagonal digits of each row i < L, then back in place
-        jidx = torch.tensor([[j for j in range(d) if j != dig_of[i]]
-                             for i in range(L)], device=dev).T[:, :, None]
         body = ntt_mod.ntt_forward(
             torch.gather(rows[..., :L, :], -3, jidx.expand(lead + (d - 1, L, n))),
             lvl_tables)
-        kidx = torch.tensor([[j if j < dig_of[i] else max(j - 1, 0)
-                              for i in range(L)] for j in range(d)],
-                            device=dev)[:, :, None]
         lvl = torch.gather(body, -3, kidx.expand(lead + (d, L, n)))
     else:
         lvl = torch.zeros_like(rows[..., :L, :])

@@ -38,9 +38,23 @@ class ModConsts(NamedTuple):
 
     def rows(self, index) -> "ModConsts":
         """Constants of the prime rows selected by a slice or index list."""
-        if not isinstance(index, slice):
-            index = torch.as_tensor(index, device=self.q.device)
-        return ModConsts(*(a[index].contiguous() for a in self))
+        return ModConsts(*(select_rows(a, index) for a in self))
+
+
+def select_rows(a: torch.Tensor, index) -> torch.Tensor:
+    """a[index] along dimension 0 for a slice or a list of row indices, as a
+    contiguous tensor on a's device. Each run of consecutive indices is one
+    slice, so no index tensor is copied from the host (a copy that a CUDA
+    graph capture refuses)."""
+    if isinstance(index, slice):
+        return a[index].contiguous()
+    runs: list[list[int]] = []
+    for i in index:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return torch.cat([a[start:stop] for start, stop in runs])
 
 
 def make_mod_consts(moduli, device) -> ModConsts:

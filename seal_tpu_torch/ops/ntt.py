@@ -26,7 +26,7 @@ import torch
 
 from seal_tpu_torch import cuda
 from seal_tpu_torch.ops import modarith
-from seal_tpu_torch.ops.modring import ModConsts, make_mod_consts
+from seal_tpu_torch.ops.modring import ModConsts, make_mod_consts, select_rows
 from seal_tpu_torch.utils import numth
 
 # ---------------------------------------------------------------------------
@@ -107,10 +107,8 @@ class NTTTables(NamedTuple):
     def rows(self, index) -> "NTTTables":
         """Tables of the prime rows selected by a slice or index list, as
         contiguous tensors (the kernel reads them by pointer)."""
-        if not isinstance(index, slice):
-            index = torch.as_tensor(index, device=self.fwd_op.device)
         return NTTTables(self.log_n, self.mc.rows(index),
-                         *(a[index].contiguous() for a in self[2:]))
+                         *(select_rows(a, index) for a in self[2:]))
 
 
 def make_ntt_tables(log_n: int, moduli, device) -> NTTTables:

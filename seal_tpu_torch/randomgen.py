@@ -7,12 +7,15 @@ byte SEAL's, which is what makes keys and ciphertexts drawn from it
 bit-identical to SEAL's and to seal_tpu's.
 
 Refill c of a blake2xb stream is BLAKE2Xb(4096 bytes, key = the 64-byte
-seed, data = c as a little-endian u64). hashlib computes each refill's root
-digest (its tree parameters are expressible there: node_offset carries the
-XOF length in its high 32 bits); the 64 output blocks of every refill of a
-draw then run at once through utils/blake2.xof_output_blocks. The stream
-is the concatenation of its refills, so how a caller chunks its reads does
-not change a byte.
+seed, data = c as a little-endian u64). The stream draws its refills from
+the port's C++ XOF (native.py, csrc/blake2xb.cpp). Its plain version,
+`blake2xb_refills_plain`, which the tests and chip_smoke.py hold the C++
+against, computes each refill's root digest with hashlib (its tree
+parameters are expressible there: node_offset carries the XOF length in its
+high 32 bits) and runs the 64 output blocks of every refill of a draw at
+once through utils/blake2.xof_output_blocks. The stream is the
+concatenation of its refills, so how a caller chunks its reads does not
+change a byte.
 """
 
 from __future__ import annotations
@@ -24,16 +27,14 @@ import struct
 
 import numpy as np
 
+from seal_tpu_torch import native
 from seal_tpu_torch.utils.blake2 import xof_output_blocks
 
 PRNG_SEED_UINT64_COUNT = 8
 PRNG_SEED_BYTE_COUNT = PRNG_SEED_UINT64_COUNT * 8
 BUFFER_SIZE = 4096
 _B2B_OUT = 64
-_REFILLS_PER_BATCH = 1024       # 4 MB of output per vectorised batch
-# A vectorised batch costs about the same below some 16 refills as for one,
-# so a short read fetches that many ahead; the stream's bytes do not change.
-_MIN_REFILLS = 16
+_REFILLS_PER_BATCH = 1024       # 4 MB of output per vectorised numpy batch
 
 
 class PrngType(enum.IntEnum):
@@ -54,6 +55,19 @@ def blake2xb(outlen: int, data: bytes, key: bytes = b"") -> bytes:
         raise ValueError("invalid outlen")
     root = np.frombuffer(_root_digest(outlen, data, key), dtype="<u8")
     return xof_output_blocks(root[None], outlen)[0].tobytes()
+
+
+def blake2xb_refills_plain(seed_bytes: bytes, counter: int, count: int) -> bytes:
+    """native.blake2xb_refills in numpy: refills counter .. counter + count
+    - 1 of the blake2xb stream of a 64-byte seed."""
+    parts = []
+    for start in range(0, count, _REFILLS_PER_BATCH):
+        batch = range(counter + start, counter + min(count, start + _REFILLS_PER_BATCH))
+        roots = np.frombuffer(b"".join(
+            _root_digest(BUFFER_SIZE, struct.pack("<Q", c), seed_bytes)
+            for c in batch), dtype="<u8").reshape(-1, 8)
+        parts.append(xof_output_blocks(roots, BUFFER_SIZE).tobytes())
+    return b"".join(parts)
 
 
 def random_seed() -> tuple:
@@ -83,8 +97,7 @@ class UniformRandomGenerator:
         out = bytearray()
         while byte_count:
             if self._pos == len(self._buffer):
-                self._buffer = self._refill_n(
-                    max(_MIN_REFILLS, -(-byte_count // BUFFER_SIZE)))
+                self._buffer = self._refill_n(-(-byte_count // BUFFER_SIZE))
                 self._pos = 0
             take = min(byte_count, len(self._buffer) - self._pos)
             out += self._buffer[self._pos:self._pos + take]
@@ -100,16 +113,9 @@ class Blake2xbPRNG(UniformRandomGenerator):
     prng_type = PrngType.BLAKE2XB
 
     def _refill_n(self, count: int) -> bytes:
-        parts = []
-        for start in range(0, count, _REFILLS_PER_BATCH):
-            batch = range(self._counter + start,
-                          self._counter + min(count, start + _REFILLS_PER_BATCH))
-            roots = np.frombuffer(b"".join(
-                _root_digest(BUFFER_SIZE, struct.pack("<Q", c), self._seed_bytes)
-                for c in batch), dtype="<u8").reshape(-1, 8)
-            parts.append(xof_output_blocks(roots, BUFFER_SIZE).tobytes())
+        out = native.blake2xb_refills(self._seed_bytes, self._counter, count)
         self._counter += count
-        return b"".join(parts)
+        return out
 
 
 class Shake256PRNG(UniformRandomGenerator):

@@ -1,6 +1,7 @@
-"""The port stands alone: importing seal_tpu_torch (every module) or
-chip_smoke.py loads neither JAX nor any module of seal_tpu, and a context
-never moves to the CPU by itself."""
+"""The port stands alone: importing seal_tpu_torch (every module), the
+examples ported to it (examples_torch/) or chip_smoke.py loads neither JAX
+nor any module of seal_tpu, and a context never moves to the CPU by
+itself."""
 
 import json
 import pathlib
@@ -16,6 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = sorted(
     "seal_tpu_torch." + ".".join(p.relative_to(ROOT / "seal_tpu_torch").with_suffix("").parts)
     for p in (ROOT / "seal_tpu_torch").rglob("*.py") if p.name != "__init__.py")
+EXAMPLES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples_torch").glob("*.py"))
 
 
 def _loaded_after(imports: str) -> list[str]:
@@ -26,10 +28,15 @@ def _loaded_after(imports: str) -> list[str]:
     return json.loads(out.stdout.splitlines()[-1])
 
 
-@pytest.mark.parametrize("what", ["package", "chip_smoke"])
+def _load_examples() -> str:
+    return "import runpy\n" + "\n".join(f"runpy.run_path({p!r})" for p in EXAMPLES)
+
+
+@pytest.mark.parametrize("what", ["package", "chip_smoke", "examples"])
 def test_no_jax_no_seal_tpu(what):
-    imports = ("import chip_smoke" if what == "chip_smoke"
-               else "\n".join(["import seal_tpu_torch"] + [f"import {m}" for m in MODULES]))
+    imports = {"chip_smoke": "import chip_smoke", "examples": _load_examples(),
+               "package": "\n".join(["import seal_tpu_torch"]
+                                    + [f"import {m}" for m in MODULES])}[what]
     loaded = _loaded_after(imports)
     assert "seal_tpu_torch.evaluator" in loaded or what == "chip_smoke"
     bad = [m for m in loaded
@@ -39,7 +46,7 @@ def test_no_jax_no_seal_tpu(what):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in (ROOT / "seal_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + EXAMPLES + ["chip_smoke.py"]))
 def test_no_import_statement_names_jax_or_seal_tpu(path):
     """Imports inside functions too, which an import at load time misses."""
     import ast
@@ -63,7 +70,10 @@ def test_every_module_listed():
             "seal_tpu_torch.ops.hybrid_keyswitch", "seal_tpu_torch.ops.compose",
             "seal_tpu_torch.utils.dwt", "seal_tpu_torch.serialization",
             "seal_tpu_torch.valcheck", "seal_tpu_torch.keygenerator",
-            "seal_tpu_torch.modulus", "seal_tpu_torch.encryption_params"} <= set(MODULES)
+            "seal_tpu_torch.modulus", "seal_tpu_torch.encryption_params",
+            "seal_tpu_torch.jit", "seal_tpu_torch.native"} <= set(MODULES)
+    assert EXAMPLES == ["examples_torch/13_streaming_pipeline.py",
+                        "examples_torch/8_performance.py"]
 
 
 def _parms():
