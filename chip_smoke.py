@@ -121,11 +121,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 14. examples: examples_torch/8_performance.py and
    13_streaming_pipeline.py at the originals' default sizes on the card;
    each checks its own results.
-15. K1 passes: the device time of each of K1's two kernels at phase 2's
+15. parallel (seal_tpu_torch/parallel/, parallel/dryrun.py) at phase 5's
+   parameters and seeds, in both modes, with the Shoup flag off and on:
+   first NCCL with one rank per card, then two gloo ranks that share the
+   card, their collectives staged through the host. Each rank makes its
+   keys and ciphertexts from the seed and holds against the unsharded card
+   Evaluator, bit for bit: multiply -> relinearize split over tp ->
+   rescale, the fused relinearize_rescale, a hoisted batch of rotations
+   1..8, a batch of 16 through vmap_pipeline (dp x tp = 1 x world), a
+   tower shard's forward NTT; and, on two ranks, the four-step NTT of [8,
+   N] over 2 shards by both routes and a 2-stage pipeline of 2
+   microbatches. One line per rank: each op's K1/K2/K3 launches on that
+   rank (each key switch launches K1 and K2 or K3 on every rank), the
+   census of its collectives (one all_reduce of 2·(L+α)·N·8 bytes per key
+   switch, beside seal_tpu's 2·3·(L+α)·N·4), and host-clock ms per split
+   key switch beside the unsharded one's.
+16. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-16. kernels: one JSON line with every ported kernel, its check and times;
-   its launches count every launch of the paths, graph replays included.
+17. kernels: one JSON line with every ported kernel, its check and times;
+   its launches count every launch of the paths, graph replays and the
+   ranks of phase 15 included.
 
 Phases 3 and 4 also hold K2 and K3 over a batch [16, J, I, N] that shares
 one key, at both modes' (J, I), against their plain versions.
@@ -227,13 +243,21 @@ def random_residues(shape, moduli, rng, factor=1):
 # phases 2 and 3: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+BATCH = 16                      # bench.py's B (LAST_VALIDATED["batch"])
+TP_RANKS = 2                    # phase 15's gloo ranks on the one card
+
 # K1's shapes on the paths run at N=16384 (direction, shape): rows 8 (two
-# towers), 14, 16, 24 and 56 forward; 2, 4, 6 and 8 inverse
+# towers), 14, 16, 24 and 56 forward; 2, 4, 6 and 8 inverse; and phase 15's
+# own: a tower shard's 2·4 rows and the whole tower of the four-step NTT's
+# reference forward, the batch's 16·8 rows inverse (a rank's digits are
+# lifted from them)
 NTT_SHAPES = (("ntt_forward", (4, 2, N)), ("ntt_forward", (8, 1, N)),
               ("ntt_forward", (2, 7, N)), ("ntt_forward", (2, 8, N)),
               ("ntt_forward", (3, 8, N)), ("ntt_forward", (7, 8, N)),
+              ("ntt_forward", (2, 4, N)), ("ntt_forward", (8, N)),
               ("ntt_inverse", (2, 1, N)), ("ntt_inverse", (2, 2, N)),
-              ("ntt_inverse", (2, 3, N)), ("ntt_inverse", (8, N)))
+              ("ntt_inverse", (2, 3, N)), ("ntt_inverse", (8, N)),
+              ("ntt_inverse", (BATCH, 8, N)))
 NTT_LARGE = (15, 17)            # n = 32768 and 131072 at 2 rows
 EXACT_T_BITS = 20               # BFV/BGV: PlainModulus.batching(N, 20)
 GRAPH_CALLS = 20
@@ -316,6 +340,11 @@ def phase_ntt(rng):
     moduli = [m.value for m in CoeffModulus.create(N, MODES["alpha2_fused"]["bits"])]
     results, runs = {}, []
     cases = [(kind, shape, moduli) for kind, shape in NTT_SHAPES]
+    # phase 15: a rank's digit rows on the extended base, one target and a
+    # batch of BATCH (TP_RANKS ranks), over each mode's own primes
+    for mode, J, I in key_shapes()[2:]:
+        ext = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+        cases += [("ntt_forward", (J, I, N), ext), ("ntt_forward", (BATCH, J, I, N), ext)]
     # BFV/BGV: a multiply's two inputs over q and over Bsk (61-bit primes),
     # the key-switch decomposition over the 9 key primes, encode and decode
     # over t
@@ -356,11 +385,10 @@ def phase_ntt_passes(runs):
 
 def key_shapes():
     """(mode, J, I): the key-switch contraction of each mode: α=1 has 8
-    digits over 8 + 1 rows, α=2 has 4 digits over 8 + 2 rows."""
-    return (("alpha1_parity", 8, 9), ("alpha2_fused", 4, 10))
-
-
-BATCH = 16                      # bench.py's B (LAST_VALIDATED["batch"])
+    digits over 8 + 1 rows, α=2 has 4 digits over 8 + 2 rows; then each
+    rank's share of those digits when phase 15 splits them over TP_RANKS."""
+    whole = (("alpha1_parity", 8, 9), ("alpha2_fused", 4, 10))
+    return whole + tuple((mode, -(-J // TP_RANKS), I) for mode, J, I in whole)
 
 
 def keyswitch_bytes(B, J, I, quotients):
@@ -443,10 +471,10 @@ def phase_keyswitch(rng):
                 "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
-        results[mode] = line
-        results[mode, BATCH] = keyswitch_batch("keyswitch_inner", mode, J, I, rng)
-    return {"keyswitch_inner": results["alpha1_parity"],
-            "keyswitch_inner_batch": results["alpha1_parity", BATCH]}
+        results[mode, J] = line
+        results[mode, J, BATCH] = keyswitch_batch("keyswitch_inner", mode, J, I, rng)
+    return {"keyswitch_inner": results["alpha1_parity", 8],
+            "keyswitch_inner_batch": results["alpha1_parity", 8, BATCH]}
 
 
 def phase_keyswitch_shoup(rng):
@@ -485,10 +513,10 @@ def phase_keyswitch_shoup(rng):
                 "bit_exact": True, "equals_k2": True, "max_abs_err": 0, "ms": ms,
                 "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
-        results[mode] = line
-        results[mode, BATCH] = keyswitch_batch("keyswitch_inner_shoup", mode, J, I, rng)
-    return {"keyswitch_inner_shoup": results["alpha1_parity"],
-            "keyswitch_inner_shoup_batch": results["alpha1_parity", BATCH]}
+        results[mode, J] = line
+        results[mode, J, BATCH] = keyswitch_batch("keyswitch_inner_shoup", mode, J, I, rng)
+    return {"keyswitch_inner_shoup": results["alpha1_parity", 8],
+            "keyswitch_inner_shoup_batch": results["alpha1_parity", 8, BATCH]}
 
 
 # ---------------------------------------------------------------------------
@@ -1793,6 +1821,68 @@ def phase_examples():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: parallel/ on ranks that share the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_LIMIT_S = 300
+# the records of ops that key-switch: each rank launches K1 and K2 (K3 with
+# the Shoup flag) in every one
+KEYSWITCH_OPS = ("/relinearize/", "/relinearize_rescale/", "/hoisted/", "/dp_tp/")
+
+
+def parallel_ops(res, backend):
+    """A rank's dryrun records, checked and cut down for its line: the
+    kernels each op launched on the rank, the census of its collectives
+    ([calls, bytes], staged through the host exactly under gloo), and the
+    census models and host-clock ms where the record has them."""
+    ops = {}
+    for name, rec in res["records"].items():
+        launches = rec["launches"]
+        if any(op in name for op in KEYSWITCH_OPS):
+            ks = "keyswitch_inner_shoup" if name.endswith("/shoup") else "keyswitch_inner"
+            require(launches["ntt_forward"] > 0 and launches["ntt_inverse"] > 0
+                    and launches[ks] > 0,
+                    f"{backend} rank {res['rank']}: {name} launched K1 and {ks}")
+        require(all(e["staged"] == (backend == "gloo") for e in rec["census"].values()),
+                f"{backend} rank {res['rank']}: {name} staged through the host "
+                f"exactly under gloo")
+        ops[name] = {"launches": {k: v for k, v in launches.items() if v},
+                     "census": {op: [e["calls"], e["bytes"]]
+                                for op, e in rec["census"].items()},
+                     **{k: rec[k] for k in ("model_bytes", "seal_tpu_model_bytes", "ms",
+                                            "ms_unsharded", "route") if k in rec}}
+    return ops
+
+
+def phase_parallel():
+    """seal_tpu_torch/parallel/dryrun.py at bench.py's width in both modes,
+    Shoup flag off and on, on NCCL with one rank per card, then on two gloo
+    ranks sharing the card (collectives staged through the host); every
+    record of every rank bit for bit the unsharded card Evaluator, every
+    split key switch one all_reduce of 2·(L+α)·N·8 bytes."""
+    import torch
+
+    from seal_tpu_torch.parallel import dryrun
+
+    total = {}
+    for backend, world in (("nccl", torch.cuda.device_count()), ("gloo", TP_RANKS)):
+        t0 = time.perf_counter()
+        results = dryrun.dryrun_multichip(world, backend, "cuda", dryrun.FULL,
+                                          timeout_s=PARALLEL_LIMIT_S)
+        seconds = time.perf_counter() - t0
+        for res in results:
+            ops = parallel_ops(res, backend)
+            for rec in res["records"].values():
+                add_counts(total, rec["launches"])
+            emit({"phase": "parallel", "backend": backend, "world": world,
+                  "rank": res["rank"], "device": res["device"], "dp": res["dp"],
+                  "tp": res["tp"], "staged": backend == "gloo", "n": dryrun.FULL["n"],
+                  "bit_exact": True, "rank_seconds": res["seconds"],
+                  "run_seconds": seconds, "ops": ops})
+    return total
+
+
 # each K1/K2/K3 wrapper's kernel by name, demangled or mangled: one K1
 # transform runs one chunk pass (ntt_pass_kernel<inverse, column=false, M>),
 # and for n > 512 a column pass as well
@@ -1894,6 +1984,7 @@ def main() -> int:
         add_counts(total, phase_graphs(mode, spec))
     add_counts(total, phase_graphs_exact())
     add_counts(total, phase_examples())
+    add_counts(total, phase_parallel())
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
     phase_ntt_passes(ntt_runs)

@@ -356,11 +356,6 @@ class Evaluator:
         return self._switch_key_reduce(
             ct, self._switch_key_decompose(ct, target), keys, keys_quot)
 
-    def _switch_key_inner(self, ct: Ciphertext, t_op, keys, keys_quot=None) -> Ciphertext:
-        """Inner product of a decomposed target with one kswitch key, then
-        the division by the special prime(s)."""
-        return self._switch_key_tail(ct, self._switch_key_reduce(ct, t_op, keys, keys_quot))
-
     def _switch_key_tail(self, ct: Ciphertext, prod) -> Ciphertext:
         """Divide the reduced inner product [2, L+α, N] by the special
         prime(s); returns the size-2 delta in the ciphertext's domain
@@ -726,7 +721,6 @@ class Evaluator:
         for s, e in zip(steps, elts):
             if s != 0 and not galois_keys.has_key(e):
                 raise ValueError(f"Galois key for step {s} not present")
-        t_op = self._switch_key_decompose(ct, ct.poly(1))
         c0 = ct.poly(0)
 
         def permuted(x, elt):
@@ -735,24 +729,38 @@ class Evaluator:
             return gt.apply_galois(x, elt, mc)
 
         live = [(s, e) for s, e in zip(steps, elts) if s != 0]
+        prods = self._hoisted_prods(ct, [e for _, e in live], galois_keys)
         by_step = {}
-        for s, elt in live:
+        for (s, elt), prod in zip(live, prods):
+            delta = self._switch_key_tail(ct, prod)
             if len(live) <= 16:
-                delta = self._switch_key_inner(
-                    ct, t_op, self._permuted_keys(galois_keys, elt, gt),
-                    self._permuted_key_quot(galois_keys, elt, gt))
                 data = permuted(torch.stack(
                     [modring.add_poly(c0, delta.poly(0), mc), delta.poly(1)], dim=-3), elt)
             else:
-                delta = self._switch_key_inner(
-                    ct, t_op.index_select(-1, gt.ntt_index(elt)), galois_keys.key(elt),
-                    self._key_quot(galois_keys, galois_keys.get_index(elt)))
                 data = torch.stack([modring.add_poly(permuted(c0, elt), delta.poly(0), mc),
                                     delta.poly(1)], dim=-3)
             out = ct.copy()
             out.data = data
             by_step[s] = out
         return [by_step[s] if s != 0 else ct.copy() for s in steps]
+
+    def _hoisted_prods(self, ct: Ciphertext, elts: list[int], galois_keys: GaloisKeys):
+        """rotate_batch_hoisted's reduced inner products [*batch, 2, L+α, N],
+        one per Galois element of `elts`, from one decomposition of c1: up to
+        16 against the permuted keys, more with the decomposition permuted
+        instead. Yields them one at a time, so one product is live at once
+        (keyswitch.TPEvaluator returns them all from one all_reduce)."""
+        gt = self._cd(ct).galois_tool
+        t_op = self._switch_key_decompose(ct, ct.poly(1))
+        for elt in elts:
+            if len(elts) <= 16:
+                yield self._switch_key_reduce(ct, t_op,
+                                              self._permuted_keys(galois_keys, elt, gt),
+                                              self._permuted_key_quot(galois_keys, elt, gt))
+            else:
+                yield self._switch_key_reduce(
+                    ct, t_op.index_select(-1, gt.ntt_index(elt)), galois_keys.key(elt),
+                    self._key_quot(galois_keys, galois_keys.get_index(elt)))
 
     @staticmethod
     def _permuted_keys(galois_keys: GaloisKeys, elt: int, gt: GaloisTool) -> torch.Tensor:

@@ -737,3 +737,69 @@ def test_wire_round_trip_on_card(scheme):
     back = ser.load_relin_keys(ctxs[0], blob)
     assert torch.equal(back.keys[0], seeded.keys[0]) and back.seeds == seeded.seeds
     assert back.save(mode) == blob
+
+
+def _tp_relinearize_on_card(rank, alpha, bits):
+    """One rank: multiply -> TPEvaluator.relinearize (and the fused tail at
+    α = 2) on its card against the unsharded card Evaluator, Shoup flag off
+    and on; the census and the kernel launches of each split op."""
+    from seal_tpu_torch.config import config
+    from seal_tpu_torch.parallel import HEMesh, TPEvaluator
+
+    hm = HEMesh(1, rank.world)
+    n = 4096
+    parms = st.EncryptionParameters(st.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(CoeffModulus.create(n, bits))
+    parms.set_special_modulus_size(alpha)
+    parms.set_random_seed((7,) + (0,) * 7)
+    ctx = st.SEALContext(parms, sec_level=st.SecLevelType.NONE, device=hm.device)
+    kg = st.KeyGenerator(ctx)
+    rk = kg.create_relin_keys()
+    enc = st.Encryptor(ctx, kg.create_public_key())
+    encoder = st.CKKSEncoder(ctx)
+    rng = np.random.default_rng(7)
+    a, b = (enc.encrypt(encoder.encode(rng.uniform(-1, 1, n // 2), 2.0 ** 40))
+            for _ in range(2))
+    ev, tev = st.Evaluator(ctx), TPEvaluator(ctx, hm)
+    m = ev.multiply(a, b)
+    out = {}
+    for shoup in (False, True):
+        config.keyswitch_shoup = shoup
+        try:
+            ops = {"relinearize": lambda e: e.relinearize(m, rk)}
+            if alpha > 1:
+                ops["relinearize_rescale"] = lambda e: e.relinearize_rescale(m, rk)
+            for name, op in ops.items():
+                want = op(ev)
+                hm.census.reset()
+                cuda.reset_launches()
+                got = op(tev)
+                torch.cuda.synchronize()
+                out[f"{name}/{shoup}"] = dict(
+                    same=torch.equal(got.data, want.data) and got.parms_id == want.parms_id,
+                    census=hm.census.snapshot(), launches=dict(cuda.launches),
+                    device=str(got.data.device))
+        finally:
+            config.keyswitch_shoup = False
+    return out
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+@pytest.mark.parametrize("alpha,bits", [(1, [48] * 4 + [54]), (2, [44] * 4 + [43] * 2)])
+def test_tp_relinearize_on_card(backend, world, alpha, bits):
+    """TP relinearize on the card, at world size 1 over NCCL and on two gloo
+    ranks sharing one card (collectives staged through the host, and the
+    census says so): the unsharded card result bit for bit, one all_reduce
+    of 2·(L+α)·N·8 bytes, K1 and K2 (K3 with the flag) on every rank."""
+    from seal_tpu_torch.parallel import launch
+
+    for res in launch.run(_tp_relinearize_on_card, world, backend, "cuda", 300,
+                          args=(alpha, bits)):
+        for name, rec in res.items():
+            assert rec["same"], name
+            assert rec["device"].startswith("cuda"), name
+            assert rec["census"] == {"all_reduce": {
+                "calls": 1, "bytes": 2 * (4 + alpha) * 4096 * 8, "staged": backend == "gloo"}}
+            ks = "keyswitch_inner_shoup" if name.endswith("True") else "keyswitch_inner"
+            assert rec["launches"]["ntt_forward"] > 0 and rec["launches"][ks] > 0, name
