@@ -118,9 +118,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    eager result. Then phase 7's BFV path (multiply -> relinearize ->
    mod_switch_to_next -> rotate_rows(1)) through a JitEvaluator, the same
    way.
-14. examples: examples_torch/8_performance.py and
-   13_streaming_pipeline.py at the originals' default sizes on the card;
-   each checks its own results.
+14. examples: all fourteen scripts of examples_torch/ (the port of each
+   script of examples/) at the originals' default sizes on the card (CKKS
+   n=16384 for 10; n=8192 for 3, 5, 6's CKKS part, 9 and 12; n=4096 for
+   1, 4, 6's BFV part and 14, at B=64), each checking its own results,
+   with its seconds and launches (each must launch K1, and K2 or K3 where
+   it relinearizes or rotates). Then SEAL's n = 4096 golden vectors from
+   the card's objects: the BFV, CKKS and BGV pipelines and the fork's
+   three-party flow of tests/test_pipeline_n4096.py (its seeds and moduli),
+   every intermediate hashed against tests/vectors/pipeline_n4096.json,
+   the three key-switching pipelines again with the Shoup flag on (the same
+   hashes), and tests/test_serialization_n4096.py's saves byte for byte
+   against serialization_n4096.json (ZSTD only where zstandard imports; a
+   line says when it is skipped), the first differing hash or byte offset
+   named on a mismatch.
 15. parallel (seal_tpu_torch/parallel/, parallel/dryrun.py) at phase 5's
    parameters and seeds, in both modes, with the Shoup flag off and on:
    first NCCL with one rank per card, then two gloo ranks that share the
@@ -136,12 +147,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    census of its collectives (one all_reduce of 2·(L+α)·N·8 bytes per key
    switch, beside seal_tpu's 2·3·(L+α)·N·4), and host-clock ms per split
    key switch beside the unsharded one's.
-16. K1 passes: the device time of each of K1's two kernels at phase 2's
+16. path shapes: every configuration (kernel, input shape, moduli) at
+   which phases 5-14 launched K1, K2 or K3, noted as they ran, that phases
+   2-4 did not check (among them the examples' n = 256, 4096, 8192 and
+   16384 towers and the n = 4096 vector flows), is checked as phases 2-4
+   check theirs: random inputs of that shape over those moduli, bit for
+   bit against the plain version on CPU copies, with `ms`, the plain
+   version's time and `bound_ms`.
+17. K1 passes: the device time of each of K1's two kernels at phase 2's
    shapes, from torch.profiler's CUDA trace (after the paths, so that the
    profiler does not weigh on their host-clock times).
-17. kernels: one JSON line with every ported kernel, its check and times;
+18. kernels: one JSON line with every ported kernel, its check and times;
    its launches count every launch of the paths, graph replays and the
-   ranks of phase 15 included.
+   ranks of phase 15 included. A line before it gives each phase's
+   host-clock seconds.
 
 Phases 3 and 4 also hold K2 and K3 over a batch [16, J, I, N] that shares
 one key, at both modes' (J, I), against their plain versions.
@@ -282,38 +301,52 @@ def graph_ms(fn, reps=10):
     return cuda_ms(graph.replay, reps=reps) / GRAPH_CALLS
 
 
-def ntt_case(kind, shape, moduli, rng):
+# (kernel, shape, moduli) of every check of a kernel against its plain
+# version; phase 16 checks the paths' other configurations
+CHECKED: set = set()
+
+
+def ntt_case(kind, shape, moduli, rng, phase="K1", graph=True):
     """K1 at one shape: bit for bit against the plain version (lazy off and
-    on), timed. Returns its line and the timed call."""
+    on), timed (with graph, also replayed from a CUDA graph, and the plain
+    version timed on a call of its own). Returns its line and the timed
+    call."""
     import torch
 
     from seal_tpu_torch.ops import ntt
 
     log_n = shape[-1].bit_length() - 1
     n, L = shape[-1], shape[-2]
-    t_dev = ntt.make_ntt_tables(log_n, moduli[:L], "cuda")
-    t_cpu = ntt.make_ntt_tables(log_n, moduli[:L], "cpu")
+    moduli = list(moduli[:L])
+    CHECKED.add((kind, tuple(shape), tuple(moduli)))
+    t_dev = ntt.make_ntt_tables(log_n, moduli, "cuda")
+    t_cpu = ntt.make_ntt_tables(log_n, moduli, "cpu")
     rows = math.prod(shape[:-1])
     kernel = getattr(ntt, f"{kind}_cuda")
     plain = getattr(ntt, f"{kind}_plain")
     factor = 4 if kind == "ntt_forward" else 2
-    q = torch.tensor(moduli[:L], dtype=torch.int64)
-    x = random_residues(shape, moduli[:L], rng, factor)
+    q = torch.tensor(moduli, dtype=torch.int64)
+    x = random_residues(shape, moduli, rng, factor)
     x[..., 0] = factor * q - 1                  # the largest input and q - 1
     x[..., 1] = q - 1
     x_dev = x.cuda()
-    want = {}
+    plain_ms = {}
     for lazy in (False, True):
         got = kernel(x_dev, t_dev, lazy)
         torch.cuda.synchronize()
-        want[lazy] = plain(x, t_cpu, lazy)
-        require(torch.equal(got.cpu(), want[lazy]), f"{kind} lazy={lazy} {shape} bit-exact")
-    line = {"phase": "K1", "kernel": kind, "shape": list(shape), "rows": rows,
+        t0 = time.perf_counter()
+        want = plain(x, t_cpu, lazy)
+        plain_ms[lazy] = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(got.cpu(), want), f"{kind} lazy={lazy} {shape} bit-exact")
+    line = {"phase": phase, "kernel": kind, "shape": list(shape), "rows": rows,
             "bit_exact": True, "max_abs_err": 0}
     run = lambda: kernel(x_dev, t_dev, False)        # noqa: E731
     line["ms"] = cuda_ms(run)
-    line["device_ms"] = graph_ms(run)
-    line["plain_ms"] = host_ms(lambda: plain(x, t_cpu, False), reps=1)
+    if graph:
+        line["device_ms"] = graph_ms(run)
+        line["plain_ms"] = host_ms(lambda: plain(x, t_cpu, False), reps=1)
+    else:
+        line["plain_ms"] = plain_ms[False]
     # data in and out once, the primes' op and quotient tables once
     nbytes = 2 * rows * n * 8 + 2 * L * n * 8
     muls = rows * (n // 2) * log_n * (2 * MUL_LO + MUL_HI)
@@ -391,11 +424,20 @@ def key_shapes():
     return whole + tuple((mode, -(-J // TP_RANKS), I) for mode, J, I in whole)
 
 
-def keyswitch_bytes(B, J, I, quotients):
+def keyswitch_bytes(B, J, I, quotients, n=N):
     """Bytes a K2 (K3 with quotients) call over B targets must move: t and
     the output once per member, the key (and its quotients) once."""
-    key_words = (4 if quotients else 2) * J * I * N
-    return (B * J * I * N + key_words + 2 * B * I * N) * 8
+    key_words = (4 if quotients else 2) * J * I * n
+    return (B * J * I * n + key_words + 2 * B * I * n) * 8
+
+
+def keyswitch_muls(J, I, shoup, n=N):
+    """32-bit multiplies of one target's key switch: per (i, x) and
+    component, K2 takes J full products and then a Barrett-128 reduction,
+    K3 J lazy Shoup terms of three 64-bit products each."""
+    if shoup:
+        return I * n * 2 * J * (2 * MUL_LO + MUL_HI)
+    return I * n * 2 * (J * (MUL_LO + MUL_HI) + 4 * MUL_LO + 3 * MUL_HI)
 
 
 def keyswitch_batch(kind, mode, J, I, rng):
@@ -408,6 +450,7 @@ def keyswitch_batch(kind, mode, J, I, rng):
     from seal_tpu_torch.ops import keyswitch
 
     moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+    CHECKED.add((kind, (BATCH, J, I, N), tuple(moduli)))
     q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
     t = random_residues((BATCH, J, I, N), moduli, rng)
     k = random_residues((J, 2, I, N), moduli, rng)
@@ -428,9 +471,7 @@ def keyswitch_batch(kind, mode, J, I, rng):
     require(torch.equal(got[BATCH - 1], kernel(dev[0][BATCH - 1], *dev[1:], *extra)),
             f"{kind} batch member equals its unbatched call")
     run = lambda: kernel(*dev, *extra)      # noqa: E731
-    per_member = I * N * 2 * J * ((2 * MUL_LO + MUL_HI) if shoup else (MUL_LO + MUL_HI))
-    if not shoup:
-        per_member += I * N * 2 * (4 * MUL_LO + 3 * MUL_HI)
+    per_member = keyswitch_muls(J, I, shoup)
     b_ms, b_by = bound(keyswitch_bytes(BATCH, J, I, shoup), BATCH * per_member)
     line = {"phase": "K3" if shoup else "K2", "kernel": kind, "shape": [BATCH, J, I, N],
             "mode": mode, "bit_exact": True, "max_abs_err": 0, "ms": cuda_ms(run),
@@ -452,6 +493,7 @@ def phase_keyswitch(rng):
     results = {}
     for mode, J, I in key_shapes():
         moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+        CHECKED.add(("keyswitch_inner", (J, I, N), tuple(moduli)))
         t = random_residues((J, I, N), moduli, rng)
         k = random_residues((J, 2, I, N), moduli, rng)
         consts = keyswitch.pack_mod_consts(moduli, "cpu")
@@ -462,10 +504,7 @@ def phase_keyswitch(rng):
         run = lambda: keyswitch.keyswitch_inner_cuda(t_dev, k_dev, c_dev)  # noqa: E731
         ms, device_ms = cuda_ms(run), graph_ms(run)
         plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_plain(t, k, consts))
-        nbytes = (J * I * N + 2 * J * I * N + 2 * I * N) * 8
-        # per (i, x): 2J full products, then two Barrett-128 reductions
-        muls = I * N * (2 * J * (MUL_LO + MUL_HI) + 2 * (4 * MUL_LO + 3 * MUL_HI))
-        b_ms, b_by = bound(nbytes, muls)
+        b_ms, b_by = bound(keyswitch_bytes(1, J, I, False), keyswitch_muls(J, I, False))
         line = {"phase": "K2", "kernel": "keyswitch_inner", "shape": [J, I, N],
                 "bit_exact": True, "max_abs_err": 0, "ms": ms, "device_ms": device_ms,
                 "plain_ms": plain_ms,
@@ -486,6 +525,7 @@ def phase_keyswitch_shoup(rng):
     results = {}
     for mode, J, I in key_shapes():
         moduli = [m.value for m in CoeffModulus.create(N, MODES[mode]["bits"])]
+        CHECKED.add(("keyswitch_inner_shoup", (J, I, N), tuple(moduli)))
         q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
         t = random_residues((J, I, N), moduli, rng)
         k = random_residues((J, 2, I, N), moduli, rng)
@@ -505,10 +545,7 @@ def phase_keyswitch_shoup(rng):
         ms, device_ms = cuda_ms(run), graph_ms(run)
         plain_ms = host_ms(lambda: keyswitch.keyswitch_inner_shoup_plain(
             t, k, kq, consts, max_q))
-        nbytes = (J * I * N + 4 * J * I * N + 2 * I * N) * 8
-        # per (i, x) and component: J lazy Shoup terms, three 64-bit products each
-        muls = I * N * 2 * J * (2 * MUL_LO + MUL_HI)
-        b_ms, b_by = bound(nbytes, muls)
+        b_ms, b_by = bound(keyswitch_bytes(1, J, I, True), keyswitch_muls(J, I, True))
         line = {"phase": "K3", "kernel": "keyswitch_inner_shoup", "shape": [J, I, N],
                 "bit_exact": True, "equals_k2": True, "max_abs_err": 0, "ms": ms,
                 "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -574,6 +611,17 @@ def contexts(spec, seed):
     parms.set_special_modulus_size(spec["alpha"])
     parms.set_random_seed(seed)
     return SEALContext(parms), SEALContext(parms, device="cpu")
+
+
+PHASE_SECONDS: dict = {}
+
+
+def clocked(name, fn, *args):
+    """fn(*args), its host-clock seconds added to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    return out
 
 
 def counted(fn):
@@ -1798,7 +1846,13 @@ def phase_graphs_exact():
     return total
 
 
-EXAMPLES = ("8_performance.py", "13_streaming_pipeline.py")
+EXAMPLES = ("1_bfv_basics.py", "2_encoders.py", "3_levels.py", "4_bgv_basics.py",
+            "5_ckks_basics.py", "6_rotation.py", "7_serialization.py", "8_performance.py",
+            "9_encrypted_matvec.py", "10_encrypted_logreg.py", "11_hybrid_keyswitch.py",
+            "12_threshold_ckks.py", "13_streaming_pipeline.py", "14_batch_api.py")
+# the examples that relinearize or rotate, so launch K2 (K3 with the flag on)
+KEY_SWITCHING_EXAMPLES = frozenset(EXAMPLES) - {"2_encoders.py", "3_levels.py",
+                                                "12_threshold_ckks.py"}
 
 
 def phase_examples():
@@ -1815,9 +1869,337 @@ def phase_examples():
         spec.loader.exec_module(module)
         t0 = time.perf_counter()
         _, launches = counted(module.main)
+        require(launches["ntt_forward"] > 0, f"example {name} launched ntt_forward")
+        if name in KEY_SWITCHING_EXAMPLES:
+            require(launches["keyswitch_inner"] + launches["keyswitch_inner_shoup"] > 0,
+                    f"example {name} launched a key-switch kernel")
         emit({"phase": "examples", "example": name, "seconds": time.perf_counter() - t0,
               "launches": launches})
         add_counts(total, launches)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14, second part: SEAL's n = 4096 golden vectors
+# ---------------------------------------------------------------------------
+
+VECTOR_N = 4096
+VECTOR_SEED = (1, 2, 3, 4, 5, 6, 7, 8)
+VECTOR_DIR = "tests/vectors"
+
+
+def load_vectors(name):
+    """A JSON file of SEAL's golden vectors (tests/vectors/), read from the
+    checkout beside this script."""
+    import pathlib
+
+    return json.loads((pathlib.Path(__file__).resolve().parent / VECTOR_DIR / name).read_text())
+
+
+def vector_hash(x) -> str:
+    """blake2b-256 over the little-endian u64 words of a tensor or array,
+    rendered word-wise like the dumper's %016llx of hash_block_type
+    (tests/test_pipeline_n4096.py h())."""
+    import hashlib
+    import struct
+
+    import numpy as np
+
+    if not isinstance(x, np.ndarray):
+        x = x.detach().cpu().numpy()
+    data = np.ascontiguousarray(x).view(np.uint64).tobytes()
+    words = struct.unpack("<4Q", hashlib.blake2b(data, digest_size=32).digest())
+    return "".join(f"{w:016x}" for w in words)
+
+
+def vector_parms(scheme, bits, seed=VECTOR_SEED):
+    """The n = 4096 parameters of tests/test_pipeline_n4096.py: the given
+    bit sizes, a 20-bit batching t for BFV/BGV, the random seed."""
+    from seal_tpu_torch import CoeffModulus, EncryptionParameters, PlainModulus, SchemeType
+
+    parms = EncryptionParameters(scheme)
+    parms.set_poly_modulus_degree(VECTOR_N)
+    parms.set_coeff_modulus(CoeffModulus.create(VECTOR_N, bits))
+    if scheme != SchemeType.CKKS:
+        parms.set_plain_modulus(PlainModulus.batching(VECTOR_N, 20))
+    parms.set_random_seed(seed)
+    return parms
+
+
+def vector_context(scheme, bits, device, seed=VECTOR_SEED):
+    from seal_tpu_torch import SEALContext, SecLevelType
+
+    return SEALContext(vector_parms(scheme, bits, seed), sec_level=SecLevelType.NONE,
+                       device=device)
+
+
+def vector_flow_bfv(device=None) -> dict:
+    """BFV keygen -> encode -> encrypt (public and secret key) -> multiply
+    -> relinearize -> mod switch, rotate_rows(1) -> decrypt -> decode, each
+    intermediate hashed (pipeline_n4096.json's bfv_* entries)."""
+    import numpy as np
+
+    from seal_tpu_torch import (
+        BatchEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator, SchemeType)
+
+    ctx = vector_context(SchemeType.BFV, [40] * 4, device)
+    t = ctx.first_context_data().parms.plain_modulus.value
+    out = {"bfv_plain_modulus": t}
+    kg = KeyGenerator(ctx)
+    out["bfv_secret_key"] = vector_hash(kg.secret_key().data)
+    pk = kg.create_public_key()
+    out["bfv_public_key"] = vector_hash(pk.data.data)
+    rk = kg.create_relin_keys()
+    out["bfv_relin_key"] = vector_hash(rk.keys[0])
+    gk = kg.create_galois_keys(ctx.key_context_data().galois_tool.get_elts_from_steps([1, -1]))
+    be = BatchEncoder(ctx)
+    i = np.arange(VECTOR_N, dtype=np.int64)
+    p1, p2 = be.encode((i * 7 + 3) % t), be.encode((i * i + 11) % t)
+    out["bfv_plain1"], out["bfv_plain2"] = vector_hash(p1.data), vector_hash(p2.data)
+    enc, dec, ev = Encryptor(ctx, pk), Decryptor(ctx, kg.secret_key()), Evaluator(ctx)
+    c1, c2 = enc.encrypt(p1), enc.encrypt(p2)
+    out["bfv_ct1"], out["bfv_ct2"] = vector_hash(c1.data), vector_hash(c2.data)
+    out["bfv_ct1_sym"] = vector_hash(Encryptor(ctx, kg.secret_key()).encrypt_symmetric(p1).data)
+    cm = ev.multiply(c1, c2)
+    out["bfv_mul"] = vector_hash(cm.data)
+    cr = ev.relinearize(cm, rk)
+    out["bfv_relin"] = vector_hash(cr.data)
+    cs = ev.mod_switch_to_next(cr)
+    out["bfv_modswitch"] = vector_hash(cs.data)
+    out["bfv_rot1"] = vector_hash(ev.rotate_rows(cr, 1, gk).data)
+    pd = dec.decrypt(cs)
+    out["bfv_decrypted"] = vector_hash(pd.data)
+    out["bfv_decoded"] = vector_hash(be.decode(pd))
+    out["bfv_noise_budget"] = dec.invariant_noise_budget(cs)
+    return out
+
+
+def vector_flow_ckks(device=None) -> dict:
+    """CKKS keygen (relinearization keys, Galois keys of elements 3 and
+    2n-1) -> encode at 2^30 -> encrypt -> multiply -> relinearize -> rescale,
+    rotate_vector(1), complex_conjugate -> decrypt -> decode (its doubles'
+    bits), each hashed (pipeline_n4096.json's ckks_* entries)."""
+    import numpy as np
+
+    from seal_tpu_torch import (
+        CKKSEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator, SchemeType)
+
+    ctx = vector_context(SchemeType.CKKS, [40] * 4, device)
+    out = {}
+    kg = KeyGenerator(ctx)
+    out["ckks_secret_key"] = vector_hash(kg.secret_key().data)
+    pk = kg.create_public_key()
+    out["ckks_public_key"] = vector_hash(pk.data.data)
+    rk = kg.create_relin_keys()
+    out["ckks_relin_key"] = vector_hash(rk.keys[0])
+    gk = kg.create_galois_keys([3, 2 * VECTOR_N - 1])
+    ce = CKKSEncoder(ctx)
+    i = np.arange(ce.slot_count, dtype=np.float64)
+    v1 = ((i % 97) / 97.0 - 0.3) + 1j * ((i % 31) / 31.0)
+    v2 = ((i % 53) / 53.0) + 1j * ((i % 13) / 13.0 - 0.5)
+    p1, p2 = ce.encode(v1, 2.0 ** 30), ce.encode(v2, 2.0 ** 30)
+    out["ckks_plain1"], out["ckks_plain2"] = vector_hash(p1.data), vector_hash(p2.data)
+    enc, dec, ev = Encryptor(ctx, pk), Decryptor(ctx, kg.secret_key()), Evaluator(ctx)
+    c1, c2 = enc.encrypt(p1), enc.encrypt(p2)
+    out["ckks_ct1"], out["ckks_ct2"] = vector_hash(c1.data), vector_hash(c2.data)
+    cm = ev.multiply(c1, c2)
+    out["ckks_mul"] = vector_hash(cm.data)
+    cr = ev.relinearize(cm, rk)
+    out["ckks_relin"] = vector_hash(cr.data)
+    cs = ev.rescale_to_next(cr)
+    out["ckks_rescale"] = vector_hash(cs.data)
+    out["ckks_rescale_scale"] = cs.scale
+    out["ckks_rot1"] = vector_hash(ev.rotate_vector(c1, 1, gk).data)
+    out["ckks_conj"] = vector_hash(ev.complex_conjugate(c1, gk).data)
+    pd = dec.decrypt(cs)
+    out["ckks_decrypted"] = vector_hash(pd.data)
+    out["ckks_decoded_bits"] = vector_hash(ce.decode(pd, complex_out=True))
+    return out
+
+
+def vector_flow_bgv(device=None) -> dict:
+    """BGV keygen -> encode -> encrypt -> multiply -> relinearize -> mod
+    switch, rotate_rows(1) -> decrypt -> decode, each hashed
+    (pipeline_n4096.json's bgv_* entries)."""
+    import numpy as np
+
+    from seal_tpu_torch import (
+        BatchEncoder, Decryptor, Encryptor, Evaluator, KeyGenerator, SchemeType)
+
+    ctx = vector_context(SchemeType.BGV, [40] * 4, device)
+    t = ctx.first_context_data().parms.plain_modulus.value
+    out = {}
+    kg = KeyGenerator(ctx)
+    out["bgv_secret_key"] = vector_hash(kg.secret_key().data)
+    pk = kg.create_public_key()
+    out["bgv_public_key"] = vector_hash(pk.data.data)
+    rk = kg.create_relin_keys()
+    out["bgv_relin_key"] = vector_hash(rk.keys[0])
+    gk = kg.create_galois_keys(ctx.key_context_data().galois_tool.get_elts_from_steps([1]))
+    be = BatchEncoder(ctx)
+    i = np.arange(VECTOR_N, dtype=np.int64)
+    p1, p2 = be.encode((i * 5 + 1) % t), be.encode((i * 3 + 7) % t)
+    out["bgv_plain1"] = vector_hash(p1.data)
+    enc, dec, ev = Encryptor(ctx, pk), Decryptor(ctx, kg.secret_key()), Evaluator(ctx)
+    c1, c2 = enc.encrypt(p1), enc.encrypt(p2)
+    out["bgv_ct1"] = vector_hash(c1.data)
+    cm = ev.multiply(c1, c2)
+    out["bgv_mul"] = vector_hash(cm.data)
+    cr = ev.relinearize(cm, rk)
+    out["bgv_relin"] = vector_hash(cr.data)
+    cs = ev.mod_switch_to_next(cr)
+    out["bgv_modswitch"] = vector_hash(cs.data)
+    out["bgv_rot1"] = vector_hash(ev.rotate_rows(c1, 1, gk).data)
+    pd = dec.decrypt(cs)
+    out["bgv_decrypted"] = vector_hash(pd.data)
+    out["bgv_decoded"] = vector_hash(be.decode(pd))
+    return out
+
+
+def vector_flow_multiparty(device=None) -> dict:
+    """The fork's three-party BFV flow, each party seeded (10 + i, 2, ...,
+    8): secret keys, shared-c1 public keys, the common public and secret
+    keys, an encryption under the common key, each partial decryption and
+    their aggregate, each hashed (pipeline_n4096.json's mp_* entries)."""
+    import numpy as np
+
+    from seal_tpu_torch import BatchEncoder, Decryptor, Encryptor, KeyGenerator, SchemeType
+
+    ctxs = [vector_context(SchemeType.BFV, [40] * 3, device, seed=(10 + i, 2, 3, 4, 5, 6, 7, 8))
+            for i in range(3)]
+    kgs = [KeyGenerator(ctx) for ctx in ctxs]
+    out = {}
+    sks = [kg.generate_secret_key() for kg in kgs]
+    for i, sk in enumerate(sks):
+        out[f"mp_sk{i}"] = vector_hash(sk.data)
+    pks = [kgs[0].create_public_key_with_sk(sks[0])]
+    pks += [kgs[i].create_public_key_with_same_c1(sks[i], pks[0]) for i in (1, 2)]
+    cpk = kgs[0].create_common_public_key(pks)
+    out["mp_cpk"] = vector_hash(cpk.data.data)
+    out["mp_csk"] = vector_hash(kgs[0].create_common_secret_key(sks).data)
+    t = ctxs[0].first_context_data().parms.plain_modulus.value
+    i = np.arange(VECTOR_N, dtype=np.int64)
+    ct = Encryptor(ctxs[0], cpk).encrypt(BatchEncoder(ctxs[0]).encode((i * 9 + 2) % t))
+    out["mp_ct"] = vector_hash(ct.data)
+    partials = [Decryptor(ctxs[j], sks[j]).distributed_decrypt(ct) for j in range(3)]
+    for j, part in enumerate(partials):
+        out[f"mp_partial{j}"] = vector_hash(part.data[1])
+    agg = Decryptor(ctxs[0], sks[0]).aggregate_partial_decryption(ct, partials)
+    out["mp_aggregated_plain"] = vector_hash(agg.data)
+    return out
+
+
+VECTOR_FLOWS = {"bfv": vector_flow_bfv, "ckks": vector_flow_ckks, "bgv": vector_flow_bgv,
+                "multiparty": vector_flow_multiparty}
+
+
+def vector_saves(device=None) -> tuple[dict, bool]:
+    """tests/test_serialization_n4096.py's objects (BFV n=4096, bits [36,
+    36, 37], the seed; relinearization and Galois {3} keys with save_seed,
+    a public-key and a seeded symmetric encryption), saved as SEAL's bytes
+    under serialization_n4096.json's names: ZLIB, and ZSTD where
+    `zstandard` imports. Also whether the ciphertext decrypts to its
+    slots."""
+    import numpy as np
+    import torch
+
+    from seal_tpu_torch import (
+        BatchEncoder, ComprMode, Decryptor, Encryptor, KeyGenerator, SchemeType, SEALContext)
+    from seal_tpu_torch import serialization as ser
+
+    parms = vector_parms(SchemeType.BFV, [36, 36, 37])
+    ctx = SEALContext(parms, device=device)
+    kg = KeyGenerator(ctx)
+    # the dumper's stream order: relin (seeded) -> galois {3} (seeded) ->
+    # public key -> encrypt -> encrypt_symmetric (seeded)
+    rk = kg.create_relin_keys(save_seed=True)
+    gk = kg.create_galois_keys([3], save_seed=True)
+    pk = kg.create_public_key()
+    enc = Encryptor(ctx, pk, kg.secret_key())
+    be = BatchEncoder(ctx)
+    vals = np.asarray([(17 * i + 3) % 1000 for i in range(be.slot_count)], dtype=np.int64)
+    p1 = be.encode(vals)
+    ct = enc.encrypt(p1)
+    ct_sym = enc.encrypt_symmetric(p1, save_seed=True)
+    saves = {"parms": ser.save_encryption_parameters(parms),
+             "relin_keys_seeded": ser.save_relin_keys(rk),
+             "galois_keys_seeded": ser.save_galois_keys(gk),
+             "ct_none": ser.save_ciphertext(ct),
+             "ct_sym_seeded": ser.save_ciphertext(ct_sym),
+             "ct_zlib": ser.save_ciphertext(ct, ComprMode.ZLIB)}
+    if ser._zstd is not None:
+        saves["ct_zstd"] = ser.save_ciphertext(ct, ComprMode.ZSTD)
+    decoded = be.decode(Decryptor(ctx, kg.secret_key()).decrypt(ct))
+    return saves, bool(torch.equal(decoded, torch.from_numpy(vals).to(decoded.device)))
+
+
+def first_vector_mismatch(got: dict, want: dict):
+    """The first entry of got that differs from the vectors, as
+    'name: got != want', or None when every one is equal."""
+    for name, value in got.items():
+        if value != want[name]:
+            return f"{name}: {value!r} != {want[name]!r}"
+    return None
+
+
+def first_byte_mismatch(got: dict, want: dict):
+    """The first save whose bytes differ from the vectors' hex, with the
+    first byte offset that differs, or None."""
+    for name, blob in got.items():
+        ref = bytes.fromhex(want[name])
+        if blob != ref:
+            offset = next((k for k, (a, b) in enumerate(zip(blob, ref)) if a != b),
+                          min(len(blob), len(ref)))
+            return f"{name}: byte {offset} differs ({len(blob)} bytes against {len(ref)})"
+    return None
+
+
+def phase_vectors():
+    """SEAL's n = 4096 golden vectors from the card's objects: each flow of
+    pipeline_n4096.json hashed, the key-switching flows (BFV, CKKS, BGV)
+    with the Shoup flag off (K2) and again on (K3), and the saves of
+    serialization_n4096.json byte for byte."""
+    from seal_tpu_torch.config import config
+
+    hashes = load_vectors("pipeline_n4096.json")
+    total = {}
+    for shoup in (False, True):
+        config.keyswitch_shoup = shoup
+        try:
+            for name, flow in VECTOR_FLOWS.items():
+                if shoup and name == "multiparty":
+                    continue                    # no key switch to run again
+                t0 = time.perf_counter()
+                got, launches = counted(flow)
+                seconds = time.perf_counter() - t0
+                bad = first_vector_mismatch(got, hashes)
+                require(bad is None, f"vectors {name} (shoup {shoup}) {bad}")
+                if name != "multiparty":
+                    ks = "keyswitch_inner_shoup" if shoup else "keyswitch_inner"
+                    require(launches[ks] > 0, f"vectors {name} launched {ks}")
+                require(launches["ntt_forward"] > 0 and launches["ntt_inverse"] > 0,
+                        f"vectors {name} launched K1")
+                emit({"phase": "vectors", "flow": name, "n": VECTOR_N, "shoup": shoup,
+                      "entries": len(got), "equal": True, "seconds": seconds,
+                      "launches": launches})
+                add_counts(total, launches)
+        finally:
+            config.keyswitch_shoup = False
+    from seal_tpu_torch import serialization
+
+    if serialization._zstd is None:
+        emit({"phase": "vectors", "flow": "wire", "mode": "zstd", "skipped": True,
+              "reason": "zstandard does not import"})
+    t0 = time.perf_counter()
+    (saves, decrypts), launches = counted(vector_saves)
+    seconds = time.perf_counter() - t0
+    bad = first_byte_mismatch(saves, load_vectors("serialization_n4096.json"))
+    require(bad is None, f"vectors wire {bad}")
+    require(decrypts, "the byte-pinned ciphertext decrypts to its slots")
+    emit({"phase": "vectors", "flow": "wire", "n": VECTOR_N,
+          "saves": {k: len(v) for k, v in saves.items()}, "bytes_equal": True,
+          "decrypts": True, "seconds": seconds, "launches": launches})
+    add_counts(total, launches)
     return total
 
 
@@ -1881,6 +2263,121 @@ def phase_parallel():
                   "bit_exact": True, "rank_seconds": res["seconds"],
                   "run_seconds": seconds, "ops": ops})
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the kernels at every configuration phases 5-14 gave them
+# ---------------------------------------------------------------------------
+
+class PathShapes:
+    """While installed, notes the configuration of every kernel launch: each
+    *_cuda wrapper of ops/ntt.py and ops/keyswitch.py is replaced by one
+    that notes (kernel, input shape, its moduli tensor) and calls the
+    wrapper unchanged, so the launches and their counts are the same. A
+    call made while a CUDA graph is captured is not noted, as its moduli
+    may not hold values yet; jit.py runs every capture's call eagerly just
+    before it, at the same shapes. The moduli are read from the card once,
+    at the end."""
+
+    WRAPPERS = (("ntt", "ntt_forward"), ("ntt", "ntt_inverse"),
+                ("keyswitch", "keyswitch_inner"), ("keyswitch", "keyswitch_inner_shoup"))
+
+    def __init__(self):
+        self.seen = {}          # (kernel, shape, moduli address, max q) -> moduli
+        self.saved = []
+
+    def __enter__(self):
+        import importlib
+
+        for module_name, kind in self.WRAPPERS:
+            module = importlib.import_module(f"seal_tpu_torch.ops.{module_name}")
+            wrapper = getattr(module, f"{kind}_cuda")
+            self.saved.append((module, f"{kind}_cuda", wrapper))
+            setattr(module, f"{kind}_cuda", self._noting(kind, wrapper))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, wrapper in self.saved:
+            setattr(module, name, wrapper)
+        self.saved.clear()
+
+    def _noting(self, kind, wrapper):
+        import torch
+
+        def call(x, *args):
+            if x.numel() and not torch.cuda.is_current_stream_capturing():
+                shoup = kind.endswith("shoup")
+                # the NTT's tables carry [L, 1] moduli; the key switch's
+                # constants are [I, 3] rows (q, ratio0, ratio1)
+                moduli = args[0].mc.q if kind.startswith("ntt") else args[-2 if shoup else -1]
+                max_q = args[-1] if shoup else None
+                key = (kind, tuple(x.shape), moduli.data_ptr(), max_q)
+                self.seen.setdefault(key, moduli)   # held, so the address stays its own
+            return wrapper(x, *args)
+        return call
+
+    def configs(self) -> list:
+        """[(kernel, shape, moduli, max q)], each configuration once."""
+        out = {}
+        for (kind, shape, _, max_q), moduli in self.seen.items():
+            values = tuple(int(v) for v in moduli[:, 0].tolist())
+            out[(kind, shape, values, max_q)] = None
+        return list(out)
+
+
+def keyswitch_case(kind, shape, moduli, max_q, rng):
+    """K2 or K3 at one shape t [*batch, J, I, n] over the rows' moduli (K3
+    with the path's max q): bit for bit against the plain version on CPU
+    copies, timed."""
+    import torch
+
+    from seal_tpu_torch.ops import keyswitch
+
+    J, I, n = shape[-3:]
+    B = math.prod(shape[:-3])
+    shoup = kind == "keyswitch_inner_shoup"
+    q = torch.tensor(moduli, dtype=torch.int64).reshape(I, 1)
+    t = random_residues(shape, moduli, rng)
+    k = random_residues((J, 2, I, n), moduli, rng)
+    t[..., 0] = k[..., 0] = q[:, 0] - 1
+    consts = keyswitch.pack_mod_consts(moduli, "cpu")
+    args = (t, k, keyswitch.key_quotients(k, moduli)) if shoup else (t, k)
+    extra = (max_q,) if shoup else ()
+    dev = [a.cuda() for a in args] + [consts.cuda()]
+    kernel = getattr(keyswitch, f"{kind}_cuda")
+    got = kernel(*dev, *extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = getattr(keyswitch, f"{kind}_plain")(*args, consts, *extra)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(got.cpu(), want), f"{kind} {list(shape)} bit-exact")
+    b_ms, b_by = bound(keyswitch_bytes(B, J, I, shoup, n), B * keyswitch_muls(J, I, shoup, n))
+    emit({"phase": "K3_paths" if shoup else "K2_paths", "kernel": kind,
+          "shape": list(shape), "bit_exact": True, "max_abs_err": 0,
+          "ms": cuda_ms(lambda: kernel(*dev, *extra)), "plain_ms": plain_ms,
+          "bound_ms": b_ms, "bound_by": b_by})
+
+
+def phase_path_shapes(shapes: PathShapes, rng):
+    """Phases 2-4's check at every configuration of K1, K2 and K3 that
+    phases 5-14 launched and phases 2-4 did not check: the same shape, the
+    same moduli, random inputs, bit for bit against the plain version."""
+    from seal_tpu_torch import cuda
+
+    t0 = time.perf_counter()
+    configs = shapes.configs()
+    fresh = [c for c in configs if c[:3] not in CHECKED]
+    for kind, shape, moduli, max_q in fresh:
+        if kind.startswith("ntt"):
+            ntt_case(kind, shape, moduli, rng, phase="K1_paths", graph=False)
+        else:
+            keyswitch_case(kind, shape, moduli, max_q, rng)
+    count = lambda cs: {k: sum(c[0] == k for c in cs) for k in cuda.launches}  # noqa: E731
+    for kind, recorded in count(configs).items():
+        require(recorded > 0, f"{kind}: phases 5-14 launched it at some configuration")
+    emit({"phase": "path_shapes", "configurations": count(configs),
+          "checked_here": count(fresh), "checked_in_phases_2_4": len(configs) - len(fresh),
+          "bit_exact": True, "seconds": time.perf_counter() - t0})
 
 
 # each K1/K2/K3 wrapper's kernel by name, demangled or mangled: one K1
@@ -1951,43 +2448,50 @@ def main() -> int:
         return 2
     from seal_tpu_torch import cuda, native
 
-    emit({"phase": "build", "seconds": cuda.build(), "sources": list(cuda.SOURCES),
+    t_start = time.perf_counter()
+    emit({"phase": "build", "seconds": clocked("1 build", cuda.build),
+          "sources": list(cuda.SOURCES),
           "native_seconds": native.build(), "native_source": str(native.SOURCE.name)})
     import numpy as np
 
     meter_prng()
-    phase_prng_rate()
+    clocked("1 prng_rate", phase_prng_rate)
     rng = np.random.default_rng(SEED)
-    kernels, ntt_runs = phase_ntt(rng)
-    kernels.update(phase_keyswitch(rng))
-    kernels.update(phase_keyswitch_shoup(rng))
+    kernels, ntt_runs = clocked("2 ntt", phase_ntt, rng)
+    kernels.update(clocked("3 keyswitch", phase_keyswitch, rng))
+    kernels.update(clocked("4 keyswitch_shoup", phase_keyswitch_shoup, rng))
 
     total = {name: 0 for name in cuda.launches}
-    for mode, spec in MODES.items():
-        add_counts(total, phase_pipeline(mode, spec))
-        add_counts(total, phase_rotations(mode, spec))
     from seal_tpu_torch import SchemeType
 
-    for scheme in (SchemeType.BFV, SchemeType.BGV):
-        add_counts(total, phase_exact(scheme))
-    for mode, spec in MODES.items():
-        add_counts(total, phase_round_trip(mode, spec))
-    for mode, spec in MODES.items():
-        add_counts(total, phase_batch(mode, spec))
-    for scheme in (SchemeType.BFV, SchemeType.BGV):
-        add_counts(total, phase_exact_batch(scheme))
-    for config in THRESHOLD:
-        counts, flow, flow_cpu = phase_threshold(config)
-        add_counts(total, counts)
-        phase_wire(config, flow, flow_cpu)
-    for mode, spec in MODES.items():
-        add_counts(total, phase_graphs(mode, spec))
-    add_counts(total, phase_graphs_exact())
-    add_counts(total, phase_examples())
-    add_counts(total, phase_parallel())
+    with PathShapes() as shapes:
+        for mode, spec in MODES.items():
+            add_counts(total, clocked("5 pipeline", phase_pipeline, mode, spec))
+            add_counts(total, clocked("6 rotations", phase_rotations, mode, spec))
+        for scheme in (SchemeType.BFV, SchemeType.BGV):
+            add_counts(total, clocked("7 exact", phase_exact, scheme))
+        for mode, spec in MODES.items():
+            add_counts(total, clocked("8 round_trip", phase_round_trip, mode, spec))
+        for mode, spec in MODES.items():
+            add_counts(total, clocked("9 batch", phase_batch, mode, spec))
+        for scheme in (SchemeType.BFV, SchemeType.BGV):
+            add_counts(total, clocked("10 exact_batch", phase_exact_batch, scheme))
+        for config in THRESHOLD:
+            counts, flow, flow_cpu = clocked("11 threshold", phase_threshold, config)
+            add_counts(total, counts)
+            clocked("12 wire", phase_wire, config, flow, flow_cpu)
+        for mode, spec in MODES.items():
+            add_counts(total, clocked("13 graphs", phase_graphs, mode, spec))
+        add_counts(total, clocked("13 graphs", phase_graphs_exact))
+        add_counts(total, clocked("14 examples", phase_examples))
+        add_counts(total, clocked("14 vectors", phase_vectors))
+    add_counts(total, clocked("15 parallel", phase_parallel))
     for name, count in total.items():
         require(count > 0, f"{name} launched on the paths run")
-    phase_ntt_passes(ntt_runs)
+    clocked("16 path_shapes", phase_path_shapes, shapes, rng)
+    clocked("17 ntt_passes", phase_ntt_passes, ntt_runs)
+    emit({"phase": "seconds", "phases": PHASE_SECONDS,
+          "total": time.perf_counter() - t_start})
 
     # K4 (_ntt_kernel_compact) computes K1's transform from the same roots
     # that csrc/ntt.cu reads, in the same order: ntt.cu is its counterpart

@@ -10,7 +10,8 @@ public-key and symmetric encryption, decryption, and the Evaluator, with the
 NTT and both routes of the key-switch inner product (128-bit sum, Shoup
 quotients) as hand-written CUDA kernels (csrc/); the fork's multiparty
 (threshold) keys and decryption; SEAL's wire format (serialization.py,
-ComprMode) and validity checks (valcheck.py). Contexts live on CUDA by
+ComprMode) and validity checks (valcheck.py); CUDA graphs (jit.py) and
+the flags (config.py). Contexts live on CUDA by
 default; pass device="cpu" to run the plain PyTorch versions instead.
 """
 
@@ -20,22 +21,23 @@ from seal_tpu_torch.decryptor import Decryptor
 from seal_tpu_torch.encoders import BatchEncoder
 from seal_tpu_torch.dtypes import (
     Ciphertext, GaloisKeys, KSwitchKeys, Plaintext, PublicKey, RelinKeys, SecretKey)
-from seal_tpu_torch.encryption_params import EncryptionParameters, SchemeType
+from seal_tpu_torch.encryption_params import EncryptionParameters, SchemeType, parms_id_zero
 from seal_tpu_torch.encryptor import Encryptor
 from seal_tpu_torch.evaluator import Evaluator
+from seal_tpu_torch.jit import JitEvaluator
 from seal_tpu_torch.keygenerator import KeyGenerator
 from seal_tpu_torch.modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
 from seal_tpu_torch.randomgen import PrngType
-from seal_tpu_torch import serialization, valcheck
+from seal_tpu_torch import config, serialization, valcheck
 from seal_tpu_torch.serialization import ComprMode
 from seal_tpu_torch.valcheck import (
     is_buffer_valid, is_data_valid_for, is_metadata_valid_for, is_valid_for)
 
 __all__ = [
     "BatchEncoder", "CKKSEncoder", "Ciphertext", "CoeffModulus", "ComprMode", "Decryptor",
-    "EncryptionParameters", "Encryptor", "Evaluator", "GaloisKeys", "KSwitchKeys",
-    "KeyGenerator", "Modulus", "PlainModulus", "Plaintext", "PrngType", "PublicKey",
+    "EncryptionParameters", "Encryptor", "Evaluator", "GaloisKeys", "JitEvaluator",
+    "KSwitchKeys", "KeyGenerator", "Modulus", "PlainModulus", "Plaintext", "PrngType", "PublicKey",
     "RelinKeys", "SEALContext", "SchemeType", "SecLevelType", "SecretKey",
-    "is_buffer_valid", "is_data_valid_for", "is_metadata_valid_for", "is_valid_for",
-    "serialization", "valcheck",
+    "config", "is_buffer_valid", "is_data_valid_for", "is_metadata_valid_for",
+    "is_valid_for", "parms_id_zero", "serialization", "valcheck",
 ]

@@ -9,7 +9,9 @@ defaults to CUDA: without a card the caller must ask for the CPU
 
 from __future__ import annotations
 
+import enum
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -22,28 +24,83 @@ from seal_tpu_torch.modulus import (
     CoeffModulus, SecLevelType)
 from seal_tpu_torch.utils import numth
 
+
+class ErrorType(enum.Enum):
+    """The verdict of parameter validation (SEAL context.h:34-115
+    error_type), as seal_tpu names it."""
+
+    NONE = "none"
+    SUCCESS = "success"
+    INVALID_SCHEME = "invalid_scheme"
+    INVALID_COEFF_MODULUS_SIZE = "invalid_coeff_modulus_size"
+    INVALID_COEFF_MODULUS_BIT_COUNT = "invalid_coeff_modulus_bit_count"
+    INVALID_COEFF_MODULUS_NO_NTT = "invalid_coeff_modulus_no_ntt"
+    INVALID_POLY_MODULUS_DEGREE = "invalid_poly_modulus_degree"
+    INVALID_POLY_MODULUS_DEGREE_NON_POWER_OF_TWO = "invalid_poly_modulus_degree_non_power_of_two"
+    INVALID_PARAMETERS_TOO_LARGE = "invalid_parameters_too_large"
+    INVALID_PARAMETERS_INSECURE = "invalid_parameters_insecure"
+    FAILED_CREATING_RNS_BASE = "failed_creating_rns_base"
+    INVALID_PLAIN_MODULUS_BIT_COUNT = "invalid_plain_modulus_bit_count"
+    INVALID_PLAIN_MODULUS_COPRIMALITY = "invalid_plain_modulus_coprimality"
+    INVALID_PLAIN_MODULUS_TOO_LARGE = "invalid_plain_modulus_too_large"
+    INVALID_PLAIN_MODULUS_NONZERO = "invalid_plain_modulus_nonzero"
+    FAILED_CREATING_RNS_TOOL = "failed_creating_rns_tool"
+
+
 # SEAL's parameter_error_message texts (context.cpp:78-133), as seal_tpu has them
-_ERRORS = {
-    "invalid_scheme": "scheme must be BFV or CKKS or BGV",
-    "invalid_coeff_modulus_size":
+_ERROR_MESSAGES = {
+    ErrorType.NONE: "constructed but not yet validated",
+    ErrorType.SUCCESS: "valid",
+    ErrorType.INVALID_SCHEME: "scheme must be BFV or CKKS or BGV",
+    ErrorType.INVALID_COEFF_MODULUS_SIZE:
         "coeff_modulus's primes' count is not bounded by SEAL_COEFF_MOD_COUNT_MIN(MAX)",
-    "invalid_coeff_modulus_bit_count":
+    ErrorType.INVALID_COEFF_MODULUS_BIT_COUNT:
         "coeff_modulus's primes' bit counts are not bounded by SEAL_USER_MOD_BIT_COUNT_MIN(MAX)",
-    "invalid_coeff_modulus_no_ntt":
+    ErrorType.INVALID_COEFF_MODULUS_NO_NTT:
         "coeff_modulus's primes are not congruent to 1 modulo (2 * poly_modulus_degree)",
-    "invalid_poly_modulus_degree":
+    ErrorType.INVALID_POLY_MODULUS_DEGREE:
         "poly_modulus_degree is not bounded by SEAL_POLY_MOD_DEGREE_MIN(MAX)",
-    "invalid_poly_modulus_degree_non_power_of_two": "poly_modulus_degree is not a power of two",
-    "invalid_parameters_insecure":
+    ErrorType.INVALID_POLY_MODULUS_DEGREE_NON_POWER_OF_TWO:
+        "poly_modulus_degree is not a power of two",
+    ErrorType.INVALID_PARAMETERS_TOO_LARGE: "parameters are too large to fit in size_t type",
+    ErrorType.INVALID_PARAMETERS_INSECURE:
         "parameters are not compliant with HomomorphicEncryption.org security standard",
-    "failed_creating_rns_base": "RNSBase cannot be constructed",
-    "invalid_plain_modulus_bit_count":
+    ErrorType.FAILED_CREATING_RNS_BASE: "RNSBase cannot be constructed",
+    ErrorType.INVALID_PLAIN_MODULUS_BIT_COUNT:
         "plain_modulus's bit count is not bounded by SEAL_PLAIN_MOD_BIT_COUNT_MIN(MAX)",
-    "invalid_plain_modulus_coprimality": "plain_modulus is not coprime to coeff_modulus",
-    "invalid_plain_modulus_too_large": "plain_modulus is not smaller than coeff_modulus",
-    "invalid_plain_modulus_nonzero": "plain_modulus is not zero",
-    "failed_creating_rns_tool": "RNSTool cannot be constructed",
+    ErrorType.INVALID_PLAIN_MODULUS_COPRIMALITY: "plain_modulus is not coprime to coeff_modulus",
+    ErrorType.INVALID_PLAIN_MODULUS_TOO_LARGE: "plain_modulus is not smaller than coeff_modulus",
+    ErrorType.INVALID_PLAIN_MODULUS_NONZERO: "plain_modulus is not zero",
+    ErrorType.FAILED_CREATING_RNS_TOOL: "RNSTool cannot be constructed",
 }
+
+
+@dataclass
+class EncryptionParameterQualifiers:
+    """A level's validation verdict and feature flags (SEAL
+    context.h:28-209); the one record of both."""
+
+    parameter_error: ErrorType = ErrorType.NONE
+    using_fft: bool = False
+    using_ntt: bool = False
+    using_batching: bool = False
+    using_fast_plain_lift: bool = False
+    using_descending_modulus_chain: bool = False
+    sec_level: SecLevelType = SecLevelType.NONE
+
+    @property
+    def parameters_set(self) -> bool:
+        return self.parameter_error == ErrorType.SUCCESS
+
+    @property
+    def parameter_error_message(self) -> str:
+        """SEAL's text of the verdict (context.cpp:78)."""
+        return _ERROR_MESSAGES[self.parameter_error]
+
+    @property
+    def parameter_error_name(self) -> str:
+        """The verdict's snake-case name (context.cpp:21)."""
+        return self.parameter_error.name.lower()
 
 
 _root = functools.lru_cache(maxsize=None)(numth.try_minimal_primitive_root)
@@ -83,17 +140,18 @@ class ContextData:
     def __init__(self, parms: EncryptionParameters, device: torch.device):
         self.parms = parms
         self.device = device
-        self.parameter_error: Optional[str] = None
-        self.total_coeff_modulus = numth.multiply_many(self.key_moduli())
-        self.total_coeff_modulus_bit_count = self.total_coeff_modulus.bit_length()
-        # BFV/BGV: batching, Δ = ⌊Q/t⌋ in RNS, Q mod t and the plain lift
-        self.using_batching = False
-        self.using_fast_plain_lift = False
+        self.qualifiers = EncryptionParameterQualifiers()
+        self.total_coeff_modulus = 0
+        self.total_coeff_modulus_bit_count = 0
+        self.rns_base = None
+        # BFV/BGV: Δ = ⌊Q/t⌋ in RNS, Q mod t and the plain lift
         self.coeff_div_plain_modulus: Optional[list[int]] = None
         self.coeff_modulus_mod_plain_modulus = 0
         self.upper_half_increment: Optional[list[int]] = None
         self.plain_upper_half_threshold = 0
         self.plain_upper_half_increment: Optional[list[int]] = None
+        # CKKS: ⌈Q/2⌉
+        self.upper_half_threshold: Optional[int] = None
         self.rns_tool_host = None
         self.chain_index = 0
         self.prev_context_data: Optional[ContextData] = None
@@ -103,10 +161,6 @@ class ContextData:
     @property
     def parms_id(self) -> ParmsId:
         return self.parms.parms_id
-
-    @property
-    def parameters_set(self) -> bool:
-        return self.parameter_error is None
 
     def key_moduli(self) -> list[int]:
         return [m.value for m in self.parms.coeff_modulus]
@@ -208,7 +262,7 @@ class SEALContext:
         self.key_parms_id = parms.parms_id
 
         alpha = parms.special_modulus_size
-        if not key_cd.parameters_set or len(parms.coeff_modulus) <= alpha:
+        if not key_cd.qualifiers.parameters_set or len(parms.coeff_modulus) <= alpha:
             self.first_parms_id = self.key_parms_id
         else:
             # the key level holds the α special primes; the first data level
@@ -219,7 +273,7 @@ class SEALContext:
         self.last_parms_id = self.first_parms_id
         self.using_keyswitching = self.first_parms_id != self.key_parms_id
 
-        if expand_mod_chain and self.first_context_data().parameters_set:
+        if expand_mod_chain and self.parameters_set:
             prev_id = self.first_parms_id
             while len(self._context_data_map[prev_id].parms.coeff_modulus) > 1:
                 next_id = self._create_next_context_data(prev_id)
@@ -248,10 +302,14 @@ class SEALContext:
 
     @property
     def parameters_set(self) -> bool:
-        return self.first_context_data().parameters_set
+        return self.first_context_data().qualifiers.parameters_set
 
     def parameter_error_message(self) -> str:
-        return self.first_context_data().parameter_error or "valid"
+        return self.first_context_data().qualifiers.parameter_error_message
+
+    def parameter_error_name(self) -> str:
+        """SEAL context.h:581 parameter_error_name."""
+        return self.first_context_data().qualifiers.parameter_error_name
 
     def on_device(self, key, make):
         """make()'s tensors moved to this context's device, once."""
@@ -263,7 +321,7 @@ class SEALContext:
         next_parms = self._context_data_map[prev_id].parms.clone()
         next_parms.set_coeff_modulus(next_parms.coeff_modulus[:-drop])
         next_cd = self._validate(next_parms)
-        if not next_cd.parameters_set:
+        if not next_cd.qualifiers.parameters_set:
             return PARMS_ID_ZERO
         next_id = next_parms.parms_id
         self._context_data_map[next_id] = next_cd
@@ -272,53 +330,65 @@ class SEALContext:
         return next_id
 
     def _validate(self, parms: EncryptionParameters) -> ContextData:
-        """The checks and host constants of SEAL context.cpp:135-420."""
+        """The checks and host constants of SEAL context.cpp:135-420: each
+        qualifier flag is set where seal_tpu's _validate sets it."""
         cd = ContextData(parms, self.device)
-        error = self._check(parms, cd)
-        cd.parameter_error = None if error is None else _ERRORS[error]
+        cd.qualifiers.parameter_error = self._check(parms, cd) or ErrorType.SUCCESS
         return cd
 
-    def _check(self, parms: EncryptionParameters, cd: ContextData) -> Optional[str]:
-        """The name of the first check that fails, or None; fills cd's
-        BFV/BGV constants on the way."""
+    def _check(self, parms: EncryptionParameters, cd: ContextData) -> Optional[ErrorType]:
+        """The verdict of the first check that fails, or None; fills cd's
+        flags and constants on the way."""
         from seal_tpu_torch.ops import rns
 
+        q = cd.qualifiers
         moduli = cd.key_moduli()
         n = parms.poly_modulus_degree
         t = parms.plain_modulus.value
         if parms.scheme == SchemeType.NONE:
-            return "invalid_scheme"
+            return ErrorType.INVALID_SCHEME
         if not COEFF_MOD_COUNT_MIN <= len(moduli) <= COEFF_MOD_COUNT_MAX:
-            return "invalid_coeff_modulus_size"
-        if any(q >> USER_MOD_BIT_COUNT_MAX or not q >> (USER_MOD_BIT_COUNT_MIN - 1)
-               for q in moduli):
-            return "invalid_coeff_modulus_bit_count"
+            return ErrorType.INVALID_COEFF_MODULUS_SIZE
+        if any(v >> USER_MOD_BIT_COUNT_MAX or not v >> (USER_MOD_BIT_COUNT_MIN - 1)
+               for v in moduli):
+            return ErrorType.INVALID_COEFF_MODULUS_BIT_COUNT
+        cd.total_coeff_modulus = numth.multiply_many(moduli)
+        cd.total_coeff_modulus_bit_count = cd.total_coeff_modulus.bit_length()
         if not POLY_MOD_DEGREE_MIN <= n <= POLY_MOD_DEGREE_MAX:
-            return "invalid_poly_modulus_degree"
+            return ErrorType.INVALID_POLY_MODULUS_DEGREE
         if numth.get_power_of_two(n) < 0:
-            return "invalid_poly_modulus_degree_non_power_of_two"
-        if (self.sec_level != SecLevelType.NONE and cd.total_coeff_modulus_bit_count
-                > CoeffModulus.max_bit_count(n, self.sec_level)):
-            return "invalid_parameters_insecure"
+            return ErrorType.INVALID_POLY_MODULUS_DEGREE_NON_POWER_OF_TWO
+        q.using_fft = True
+        q.sec_level = self.sec_level
+        if cd.total_coeff_modulus_bit_count > CoeffModulus.max_bit_count(n, self.sec_level):
+            q.sec_level = SecLevelType.NONE
+            if self.sec_level != SecLevelType.NONE:
+                return ErrorType.INVALID_PARAMETERS_INSECURE
         try:
-            base = rns.RNSBase(moduli)
+            cd.rns_base = base = rns.RNSBase(moduli)
         except ValueError:
-            return "failed_creating_rns_base"
-        if any(_root(2 * n, q) is None for q in moduli):
-            return "invalid_coeff_modulus_no_ntt"
+            return ErrorType.FAILED_CREATING_RNS_BASE
+        q.using_ntt = all(_root(2 * n, v) is not None for v in moduli)
+        if not q.using_ntt:
+            return ErrorType.INVALID_COEFF_MODULUS_NO_NTT
+        Q = cd.total_coeff_modulus
         if parms.scheme == SchemeType.CKKS:
             if t != 0:
-                return "invalid_plain_modulus_nonzero"
+                return ErrorType.INVALID_PLAIN_MODULUS_NONZERO
+            q.using_batching = True
+            cd.plain_upper_half_threshold = 1 << 63
+            # (2^63 mod q_i)·(q_i - 2) mod q_i, as SEAL and seal_tpu have it
+            cd.plain_upper_half_increment = [((1 << 63) % v) * (v - 2) % v for v in moduli]
+            cd.upper_half_threshold = (Q + 1) >> 1
         else:
             if t >> USER_MOD_BIT_COUNT_MAX or not t >> (USER_MOD_BIT_COUNT_MIN - 1):
-                return "invalid_plain_modulus_bit_count"
-            if any(numth.gcd(q, t) != 1 for q in moduli):
-                return "invalid_plain_modulus_coprimality"
-            if t >= cd.total_coeff_modulus:
-                return "invalid_plain_modulus_too_large"
-            Q = cd.total_coeff_modulus
-            cd.using_batching = _root(2 * n, t) is not None
-            cd.using_fast_plain_lift = all(q > t for q in moduli)
+                return ErrorType.INVALID_PLAIN_MODULUS_BIT_COUNT
+            if any(not numth.are_coprime(v, t) for v in moduli):
+                return ErrorType.INVALID_PLAIN_MODULUS_COPRIMALITY
+            if t >= Q:
+                return ErrorType.INVALID_PLAIN_MODULUS_TOO_LARGE
+            q.using_batching = _root(2 * n, t) is not None
+            q.using_fast_plain_lift = all(v > t for v in moduli)
             delta, rem = divmod(Q, t)
             cd.coeff_div_plain_modulus = base.decompose(delta)
             cd.coeff_modulus_mod_plain_modulus = rem
@@ -329,7 +399,8 @@ class SEALContext:
         try:
             cd.rns_tool_host = rns.RNSToolHost(n, base, t)
         except (ValueError, RuntimeError):
-            return "failed_creating_rns_tool"
+            return ErrorType.FAILED_CREATING_RNS_TOOL
+        q.using_descending_modulus_chain = all(a > b for a, b in zip(moduli, moduli[1:]))
         return None
 
     def __repr__(self):

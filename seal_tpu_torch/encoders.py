@@ -42,7 +42,7 @@ class BatchEncoder:
         cd = context.first_context_data()
         if cd.parms.scheme not in (SchemeType.BFV, SchemeType.BGV):
             raise ValueError("unsupported scheme")
-        if not cd.using_batching:
+        if not cd.qualifiers.using_batching:
             raise ValueError("encryption parameters are not valid for batching")
         self.context = context
         self.slots = cd.parms.poly_modulus_degree

@@ -29,6 +29,7 @@ class SchemeType(enum.IntEnum):
 
 
 PARMS_ID_ZERO: ParmsId = (0, 0, 0, 0)
+parms_id_zero = PARMS_ID_ZERO
 
 
 def _hash_u64_words(words) -> ParmsId:

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from seal_tpu_torch.utils import hestdparms, numth
 
 MOD_BIT_COUNT_MAX = 61
+MOD_BIT_COUNT_MIN = 2
 USER_MOD_BIT_COUNT_MAX = 60
 USER_MOD_BIT_COUNT_MIN = 2
 INTERNAL_MOD_BIT_COUNT = 61     # the BEHZ auxiliary primes (Bsk, m_sk, γ)
@@ -57,6 +58,23 @@ class Modulus:
     @property
     def is_zero(self) -> bool:
         return self.value == 0
+
+    @property
+    def bit_count(self) -> int:
+        return self.value.bit_length()
+
+    @property
+    def const_ratio(self) -> tuple[int, int, int]:
+        """floor(2^128 / value) as three 64-bit words, low to high (SEAL
+        modulus.cpp set_value); zeros for the zero modulus."""
+        if not self.value:
+            return (0, 0, 0)
+        ratio, mask = (1 << 128) // self.value, (1 << 64) - 1
+        return (ratio & mask, (ratio >> 64) & mask, ratio >> 128)
+
+    @property
+    def is_prime(self) -> bool:
+        return self.value != 0 and numth.is_prime(self.value)
 
     # comparisons by value against a Modulus or an int (modulus.h:315-381)
     def __eq__(self, other) -> bool:
@@ -127,6 +145,9 @@ class CoeffModulus:
             return COEFF_MOD_COUNT_MAX * MOD_BIT_COUNT_MAX
         return hestdparms.max_bit_count(poly_modulus_degree, int(sec_level))
 
+    # SEAL's PascalCase names (modulus.h:424-559), as seal_tpu has them
+    MaxBitCount = max_bit_count
+
     @staticmethod
     def bfv_default(poly_modulus_degree: int,
                     sec_level: SecLevelType = SecLevelType.TC128) -> list[Modulus]:
@@ -135,6 +156,8 @@ class CoeffModulus:
         if sec_level == SecLevelType.NONE:
             raise ValueError("sec_level cannot be none")
         return [Modulus(v) for v in _default_coeff_modulus(poly_modulus_degree, int(sec_level))]
+
+    BFVDefault = bfv_default
 
     @staticmethod
     def create(poly_modulus_degree: int, bit_sizes: list[int],
@@ -164,6 +187,8 @@ class CoeffModulus:
                        for size, count in count_table.items()}
         return [Modulus(prime_table[size].pop()) for size in bit_sizes]
 
+    Create = create
+
 
 class PlainModulus:
     """Factory for batching-capable plaintext moduli (modulus.h:540-559):
@@ -172,6 +197,8 @@ class PlainModulus:
     @staticmethod
     def batching(poly_modulus_degree: int, bit_size: int) -> Modulus:
         return CoeffModulus.create(poly_modulus_degree, [bit_size])[0]
+
+    Batching = batching
 
     @staticmethod
     def batching_many(poly_modulus_degree: int, bit_sizes: list[int]) -> list[Modulus]:

@@ -100,3 +100,43 @@ def negate_poly(a, mc: ModConsts):
 def dyadic_product(a, b, mc: ModConsts):
     """Elementwise NTT-domain product (dyadic_product_coeffmod parity)."""
     return modarith.mul_mod(a, b, mc.q, mc.ratio0, mc.ratio1)
+
+
+def multiply_poly_scalar(a, scalar_op, scalar_quot, mc: ModConsts):
+    """a · s mod q with s given as per-prime Shoup pairs of shape [L, 1]."""
+    return modarith.mul_mod_shoup(a, scalar_op, scalar_quot, mc.q)
+
+
+def modulo_poly_coeffs(a, mc: ModConsts):
+    """Reduce arbitrary u64 coefficients into [0, q)."""
+    return modarith.barrett_reduce_64(a, mc.q, mc.ratio1)
+
+
+def negacyclic_shift_poly(a, shift: int, mc: ModConsts):
+    """result[(i+shift) mod n] = ±a[i] in Z_q[x]/(x^n+1): a roll with the
+    wrapped prefix negated, zero coefficients kept at zero
+    (negacyclic_shift_poly_coeffmod, util/polyarithsmallmod.cpp:319-369)."""
+    n = a.shape[-1]
+    if not 0 <= shift < n:
+        raise ValueError("shift must be in [0, n)")
+    if shift == 0:
+        return a
+    rolled = torch.roll(a, shift, dims=-1)
+    wrapped = torch.arange(n, device=a.device) < shift
+    return torch.where(wrapped, modarith.neg_mod(rolled, mc.q), rolled)
+
+
+def negacyclic_multiply_mono(a, coeff_op, coeff_quot, exponent: int, mc: ModConsts):
+    """a · (c·x^e) mod (x^n+1, q): a Shoup scalar multiply, then a
+    negacyclic shift; the same bits as NTT -> dyadic -> inverse NTT
+    (negacyclic_multiply_poly_mono_coeffmod, util/polyarithsmallmod.h:634-655)."""
+    return negacyclic_shift_poly(
+        multiply_poly_scalar(a, coeff_op, coeff_quot, mc), exponent, mc)
+
+
+def poly_infty_norm(a, mc: ModConsts):
+    """max_i |a_i| with coefficients centred mod q, per prime row: values
+    >= (q+1)/2 count as q - a_i (poly_infty_norm_coeffmod). Returns an int64
+    tensor of shape [..., L, 1]."""
+    absolute = torch.where(a >= (mc.q + 1) >> 1, mc.q - a, a)
+    return absolute.amax(dim=-1, keepdim=True)

@@ -57,12 +57,38 @@ class RNSBase:
         self.inv_punctured_prod = [numth.invert_uint_mod(p % v, v)
                                    for v, p in zip(vals, self.punctured_prod)]
 
-    def extend(self, value: int) -> "RNSBase":
-        return RNSBase(self.base + [int(value)])
+    def __getitem__(self, i) -> int:
+        return self.base[i]
+
+    def contains(self, value: int) -> bool:
+        return int(value) in self.base
+
+    def is_subbase_of(self, other: "RNSBase") -> bool:
+        return all(v in other.base for v in self.base)
+
+    def extend(self, other) -> "RNSBase":
+        """This base with another base's primes, or one more prime, appended."""
+        more = other.base if isinstance(other, RNSBase) else [int(other)]
+        return RNSBase(self.base + more)
+
+    def drop(self, value: int | None = None) -> "RNSBase":
+        """This base without its last prime, or without `value`."""
+        if value is not None and int(value) not in self.base:
+            raise ValueError("value is not in the base")
+        if self.size == 1:
+            raise ValueError("cannot drop from base of size 1")
+        if value is None:
+            return RNSBase(self.base[:-1])
+        return RNSBase([v for v in self.base if v != int(value)])
 
     def decompose(self, value: int) -> list[int]:
         return [value % v for v in self.base]
 
+    def compose(self, residues) -> int:
+        """Residues -> the integer in [0, base_prod) (rns.cpp:321-399)."""
+        acc = sum(p * (int(x) * ip % v) for x, v, p, ip in zip(
+            residues, self.base, self.punctured_prod, self.inv_punctured_prod))
+        return acc % self.base_prod
 
 
 class RNSToolHost:

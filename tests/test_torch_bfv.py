@@ -97,7 +97,7 @@ def test_parameters_match_seal_tpu():
                      "upper_half_increment", "plain_upper_half_threshold",
                      "plain_upper_half_increment"):
             assert getattr(cd, name) == getattr(scd, name), name
-        assert (cd.using_batching, cd.using_fast_plain_lift) == (
+        assert (cd.qualifiers.using_batching, cd.qualifiers.using_fast_plain_lift) == (
             scd.qualifiers.using_batching, scd.qualifiers.using_fast_plain_lift)
         cd, scd = cd.next_context_data, scd.next_context_data
     assert scd is None

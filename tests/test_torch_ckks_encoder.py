@@ -300,3 +300,53 @@ def test_bfv_multiply_plain_in_ntt_form_equals_coefficient_form():
         ev.transform_to_ntt(ct_ntt)
     with pytest.raises(ValueError, match="not in NTT form"):
         ev.transform_from_ntt(ct)
+
+
+# -- (c) encode_device / decode_device ---------------------------------------------
+
+def test_device_names_are_the_float64_encoder():
+    """seal_tpu's encode_device / decode_device exist because the TPU has no
+    float64 (a float32-pair FFT, ops/cfft.py); the port's are its encode /
+    decode, which compute SEAL's bits in float64 on the context's device."""
+    assert st.CKKSEncoder.encode_device is st.CKKSEncoder.encode
+    assert st.CKKSEncoder.decode_device is st.CKKSEncoder.decode
+
+
+def test_encode_device_is_seal_tpu_host_encode(encoders):
+    """At n = 1024 the port's encode_device is seal_tpu's host encode bit
+    for bit, and its decode_device seal_tpu's host decode."""
+    ctx, encoder, sctx, sencoder = encoders
+    rng = np.random.default_rng(1)
+    half = N_HOST // 2
+    vals = rng.uniform(-10, 10, half) + 1j * rng.uniform(-10, 10, half)
+    got = encoder.encode_device(vals, 2.0 ** 30)
+    want = sencoder.encode(vals, 2.0 ** 30)
+    np.testing.assert_array_equal(got.to_numpy(), to_host(want.rns_data))
+    np.testing.assert_array_equal(bits_of(encoder.decode_device(got, complex_out=True).numpy()),
+                                  bits_of(sencoder.decode(want, complex_out=True)))
+
+
+def test_encode_device_within_seal_tpus_device_tolerances():
+    """tests/test_ckks_device_encoder.py's context (n = 128, bits [40, 30,
+    30, 40]) and inputs: the port's encode_device -> decode within 1e-5 of
+    the values, as seal_tpu's encode_device is held, and within 1e-5 of
+    seal_tpu's encode_device -> decode; the port's decode_device of a host
+    encode within 1e-5 of the values and 1e-7 of seal_tpu's decode_device."""
+    n, bits = 128, [40, 30, 30, 40]
+    sp = seal_tpu.EncryptionParameters(seal_tpu.SchemeType.CKKS)
+    sp.set_poly_modulus_degree(n)
+    sp.set_coeff_modulus(seal_tpu.CoeffModulus.create(n, bits))
+    sencoder = seal_tpu.CKKSEncoder(seal_tpu.SEALContext(sp, sec_level=seal_tpu.SecLevelType.NONE))
+    encoder = st.CKKSEncoder(ckks_context(n, bits))
+    rng = np.random.default_rng(1)
+    vals = rng.uniform(-10, 10, n // 2) + 1j * rng.uniform(-10, 10, n // 2)
+    out = encoder.decode(encoder.encode_device(vals, 2.0 ** 30), complex_out=True).numpy()
+    s_out = np.asarray(sencoder.decode(sencoder.encode_device(vals, 2.0 ** 30), complex_out=True))
+    assert np.max(np.abs(out - vals)) < 1e-5
+    assert np.max(np.abs(s_out - vals)) < 1e-5
+    assert np.max(np.abs(out - s_out)) < 1e-5
+    real = np.linspace(-3, 3, n // 2)
+    decoded = encoder.decode_device(encoder.encode(real, 2.0 ** 30)).numpy()
+    s_decoded = np.asarray(sencoder.decode_device(sencoder.encode(real, 2.0 ** 30)))
+    assert np.max(np.abs(decoded - real)) < 1e-5
+    assert np.max(np.abs(decoded - s_decoded)) < 1e-7

@@ -72,8 +72,9 @@ def test_every_module_listed():
             "seal_tpu_torch.valcheck", "seal_tpu_torch.keygenerator",
             "seal_tpu_torch.modulus", "seal_tpu_torch.encryption_params",
             "seal_tpu_torch.jit", "seal_tpu_torch.native"} <= set(MODULES)
-    assert EXAMPLES == ["examples_torch/13_streaming_pipeline.py",
-                        "examples_torch/8_performance.py"]
+    originals = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    assert EXAMPLES == [f"examples_torch/{name}" for name in originals]
+    assert len(EXAMPLES) == 14
 
 
 def _parms():

@@ -803,3 +803,39 @@ def test_tp_relinearize_on_card(backend, world, alpha, bits):
                 "calls": 1, "bytes": 2 * (4 + alpha) * 4096 * 8, "staged": backend == "gloo"}}
             ks = "keyswitch_inner_shoup" if name.endswith("True") else "keyswitch_inner"
             assert rec["launches"]["ntt_forward"] > 0 and rec["launches"][ks] > 0, name
+
+
+@pytest.mark.parametrize("shoup", [False, True])
+@pytest.mark.parametrize("flow", ["bfv", "ckks", "bgv", "multiparty"])
+def test_vectors_n4096_on_card(flow, shoup):
+    """SEAL's n = 4096 golden hashes (tests/vectors/pipeline_n4096.json)
+    from the card's objects, chip_smoke.py's flows, with the Shoup flag off
+    (K2) and on (K3): every hash equal, K1 launched, and K2 or K3 in every
+    flow that key-switches."""
+    import chip_smoke
+    from seal_tpu_torch.config import config
+
+    config.keyswitch_shoup = shoup
+    try:
+        cuda.reset_launches()
+        got = chip_smoke.VECTOR_FLOWS[flow]("cuda")
+        torch.cuda.synchronize()
+    finally:
+        config.keyswitch_shoup = False
+    assert chip_smoke.first_vector_mismatch(
+        got, chip_smoke.load_vectors("pipeline_n4096.json")) is None
+    assert cuda.launches["ntt_forward"] > 0 and cuda.launches["ntt_inverse"] > 0
+    if flow != "multiparty":
+        assert cuda.launches["keyswitch_inner_shoup" if shoup else "keyswitch_inner"] > 0
+
+
+def test_vector_saves_on_card():
+    """SEAL's n = 4096 wire bytes (tests/vectors/serialization_n4096.json)
+    saved from the card's objects, byte for byte, ZSTD where zstandard
+    imports; the ciphertext decrypts on the card."""
+    import chip_smoke
+
+    saves, decrypts = chip_smoke.vector_saves("cuda")
+    assert chip_smoke.first_byte_mismatch(
+        saves, chip_smoke.load_vectors("serialization_n4096.json")) is None
+    assert decrypts

@@ -159,3 +159,49 @@ def test_hybrid_mod_down_coefficient_output(scheme):
     _same(lambda a: hyb.mod_down(a, c, lvl, spec, lvl.mc, ntt_out=False),
           lambda a: jhyb.mod_down(a, scheme == "bgv", key_moduli, 2, 3, t, jlvl, jspec,
                                   jmodring.make_mod_consts(Q), is_ntt_out=False), rows)
+
+
+# SEAL's RNSBase API (rns.cpp:18-399) on the bases of tests/test_rns.py,
+# against seal_tpu's RNSBase
+BASES = [[2], [2, 3], [3, 5], [3, 5, 7], [2, 3, 5, 7], [3, 5, 7, 11], [3, 11],
+         [0xFFFFEE001, 0xFFFFC4001, 0x1FFFFE0001], Q]
+
+
+@pytest.mark.parametrize("values", BASES, ids=lambda b: "x".join(map(str, b))[:40])
+def test_rnsbase_api_matches_seal_tpu(values):
+    base, jbase = rns.RNSBase(values), jrns.RNSBase(values)
+    assert [base[i] for i in range(base.size)] == [jbase[i] for i in range(jbase.size)]
+    for v in (2, 3, 5, 11, 13, values[-1], values[-1] + 2):
+        assert base.contains(v) == jbase.contains(v), v
+    for other in BASES:
+        assert base.is_subbase_of(rns.RNSBase(other)) == jbase.is_subbase_of(
+            jrns.RNSBase(other)), other
+    if len(values) > 1:
+        assert base.drop().base == jbase.drop().base
+        for v in values:
+            assert base.drop(v).base == jbase.drop(v).base
+    # 7919 is in no base: both refuse it with the same message
+    with pytest.raises(ValueError) as port_error:
+        base.drop(7919)
+    with pytest.raises(ValueError) as jax_error:
+        jbase.drop(7919)
+    assert str(port_error.value) == str(jax_error.value)
+    if len(values) == 1:
+        for drop in (lambda b: b.drop(), lambda b: b.drop(values[0])):
+            with pytest.raises(ValueError) as port_error:
+                drop(base)
+            with pytest.raises(ValueError) as jax_error:
+                drop(jbase)
+            assert str(port_error.value) == str(jax_error.value)
+    if all(v % 13 for v in values):
+        assert base.extend(rns.RNSBase([13])).base == jbase.extend(jrns.RNSBase([13])).base
+    rng = np.random.default_rng(len(values))
+    for value in (0, 1, base.base_prod - 1, int(rng.integers(0, 1 << 62)) % base.base_prod):
+        residues = base.decompose(value)
+        assert residues == jbase.decompose(value)
+        assert base.compose(residues) == jbase.compose(residues) == value
+
+
+def test_rnsbase_index_out_of_range():
+    with pytest.raises(IndexError):
+        rns.RNSBase([2, 3, 5])[3]
